@@ -1,0 +1,780 @@
+// K1 and K2: the batched KL dual solve on Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of cvx_tpu/ops/pallas_kl_dual.py:
+//   K1  kl_dual_fused_{f32,f64}  <- _kl_dual_kernel      (pallas_call :953)
+//   K2  kl_dual_fused_cert_f32   <- _kl_dual_cert_kernel (pallas_call :836)
+// The plain PyTorch versions of the same algebra are kl_dual_fused_plain
+// and kl_dual_fused_cert_plain in ../kl_dual.py; the comments there and in
+// the reference explain each guard (sick flag, trust cap, fallback
+// candidate, projected candidate, boundary-jam purge, dead lanes).
+//
+// What bounds it on this card.  Per instance and Newton step the work is
+// one pass over the n lanes that accumulates dim(dim+3)/2 sums, a second
+// pass for the n_ls line-search candidates, the fallback candidate and
+// (dim > 8) the projected candidate, and between them a chain of
+// dependent warp reductions and a dim x dim solve in scalar code.  At the
+// bench shape (10k instances, n = 100, dim 3) the rows are 8 MB and stay
+// in the 50 MB L2, and the arithmetic is a few hundred MFLOP: the kernel
+// is bound by the latency of that dependent chain, not by bytes or FLOPs.
+//
+// What the design does about it.  One warp per instance: every reduction
+// is a register butterfly (__shfl_xor_sync), with no shared memory and no
+// block barrier, and every lane then solves the small system redundantly
+// so that no broadcast is needed.  Many independent warps per SM (four per
+// block) hide one another's latency.  Each lane walks a strided slice of
+// the n lanes and masks the ragged edge itself, so nothing is padded.
+// Rows are re-read from global (L2) memory in each pass instead of held in
+// registers.  DIM is a template parameter, so the small-system algebra is
+// unrolled into registers; k is a runtime value, and per-coordinate code
+// tests it as a predicate (never as an index) to keep arrays in registers.
+//
+// Numerics follow the reference: IEEE exp/log/div/sqrt (no fast math, no
+// flush to zero), NaN-propagating min/max like jnp.maximum, and the same
+// order of operations per lane (built with --fmad=false).  Sums over the
+// lanes are reduced by a warp butterfly, which nothing forces to pair the
+// partial sums as the plain version's row sums do, so chip_smoke.py and
+// tests/test_torch_cuda.py hold the kernels to the plain versions by a
+// tolerance, not bit for bit (on an H100, K1's x has matched the plain
+// version's bits at the bench shape and dims 3, 8 and 16).  K2 runs the
+// K1 f32 device code, then the warm polish and the certificate in native
+// f64, where the TPU kernel used double-single pairs.
+//
+// Interface: plain C, pointers and element strides; the lane axis is
+// contiguous, the batch and row strides are free (0 for a shared,
+// expanded matrix).  Each entry launches on the given stream and returns
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cmath>
+
+namespace {
+
+constexpr int kMaxLs = 8;          // line-search levels with accumulators
+constexpr int kWarpsPerBlock = 4;  // instances per block
+constexpr unsigned kFull = 0xffffffffu;
+
+template <typename T> struct Lim;
+template <> struct Lim<float> {
+  static __device__ __forceinline__ float eps() { return FLT_EPSILON; }
+  static __device__ __forceinline__ float tiny() { return FLT_MIN; }
+  static __device__ __forceinline__ float maxv() { return FLT_MAX; }
+};
+template <> struct Lim<double> {
+  static __device__ __forceinline__ double eps() { return DBL_EPSILON; }
+  static __device__ __forceinline__ double tiny() { return DBL_MIN; }
+  static __device__ __forceinline__ double maxv() { return DBL_MAX; }
+};
+
+__device__ __forceinline__ float kexp(float v) { return expf(v); }
+__device__ __forceinline__ double kexp(double v) { return exp(v); }
+__device__ __forceinline__ float klog(float v) { return logf(v); }
+__device__ __forceinline__ double klog(double v) { return log(v); }
+__device__ __forceinline__ float ksqrt(float v) { return sqrtf(v); }
+__device__ __forceinline__ double ksqrt(double v) { return sqrt(v); }
+__device__ __forceinline__ float kabs(float v) { return fabsf(v); }
+__device__ __forceinline__ double kabs(double v) { return fabs(v); }
+
+// jnp.maximum / jnp.minimum: a NaN in either argument gives NaN
+template <typename T> __device__ __forceinline__ T jmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <typename T> __device__ __forceinline__ T jclip(T v, T lo, T hi) {
+  return jmin(jmax(v, lo), hi);
+}
+
+// butterfly all-reduce: every lane ends with the same bits
+template <typename T> __device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+template <typename T> __device__ __forceinline__ T warp_max(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// packed upper triangle (i <= j) of a DIM x DIM symmetric matrix
+template <int DIM> __host__ __device__ constexpr int pidx(int i, int j) {
+  return i * DIM - i * (i - 1) / 2 + (j - i);
+}
+
+// One instance's rows: B = [H; 1'; A], lane axis contiguous.
+template <typename R, typename LP> struct Rows {
+  const R* H;
+  long long sHk;
+  const R* A;
+  long long sAm;
+  const LP* logp;
+  int n, k;
+};
+
+// h[j] = B[j, i] (h[k] = 1 exactly) and the log prior at lane i
+template <int DIM, typename T, typename R, typename LP>
+__device__ __forceinline__ void load_lane(const Rows<R, LP>& P, int i,
+                                          T (&h)[DIM], T& lp) {
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    if (j < P.k)
+      h[j] = T(P.H[j * P.sHk + i]);
+    else if (j == P.k)
+      h[j] = T(1);
+    else
+      h[j] = T(P.A[(j - P.k - 1) * P.sAm + i]);
+  }
+  lp = T(P.logp[i]);
+}
+
+// (B'v)_i = v[k] + sum_{j != k} v[j] h[j], in the reference's order
+template <int DIM, typename T>
+__device__ __forceinline__ T bt_of(const T (&v)[DIM], const T (&h)[DIM],
+                                   int k) {
+  T out = T(0);
+#pragma unroll
+  for (int j = 0; j < DIM; ++j)
+    if (j == k) out = v[j];
+#pragma unroll
+  for (int j = 0; j < DIM; ++j)
+    if (j != k) out = out + v[j] * h[j];
+  return out;
+}
+
+template <int DIM, typename T>
+__device__ __forceinline__ T pick(const T (&v)[DIM], int k) {
+  T out = T(0);
+#pragma unroll
+  for (int j = 0; j < DIM; ++j)
+    if (j == k) out = v[j];
+  return out;
+}
+
+// projected-gradient norm^2 (lam at 0 wanting to decrease dropped)
+template <int DIM, typename T>
+__device__ __forceinline__ T pgnorm(const T (&z)[DIM], const T (&g)[DIM],
+                                    int k) {
+  T s = T(0);
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    const T gj = (j < k && z[j] <= T(0) && g[j] > T(0)) ? T(0) : g[j];
+    s = s + gj * gj;
+  }
+  return s;
+}
+
+// dz = -M^-1 gf with the per-instance sick flag (pallas_kl_dual.py:81-163):
+// closed-form adjugate for DIM <= 3, Cholesky for DIM 4..16.
+template <int DIM, typename T>
+__device__ __forceinline__ bool solve_small(const T (&m)[DIM * (DIM + 1) / 2],
+                                            const T (&gf)[DIM], T (&dz)[DIM]) {
+#define M(i, j) m[pidx<DIM>((i), (j))]
+  const T eps10 = T(10) * Lim<T>::eps();
+  if constexpr (DIM == 2) {
+    const T det = M(0, 0) * M(1, 1) - M(0, 1) * M(0, 1);
+    const bool sick = det <= eps10 * (M(0, 0) * M(1, 1));
+    dz[0] = -(M(1, 1) * gf[0] - M(0, 1) * gf[1]) / det;
+    dz[1] = -(M(0, 0) * gf[1] - M(0, 1) * gf[0]) / det;
+    return sick;
+  } else if constexpr (DIM == 3) {
+    const T c00 = M(1, 1) * M(2, 2) - M(1, 2) * M(1, 2);
+    const T c01 = M(1, 2) * M(0, 2) - M(0, 1) * M(2, 2);
+    const T c02 = M(0, 1) * M(1, 2) - M(1, 1) * M(0, 2);
+    const T det = M(0, 0) * c00 + M(0, 1) * c01 + M(0, 2) * c02;
+    const bool sick = det <= eps10 * (M(0, 0) * M(1, 1) * M(2, 2));
+    dz[0] = -(c00 * gf[0] + c01 * gf[1] + c02 * gf[2]) / det;
+    dz[1] = -(c01 * gf[0] + (M(0, 0) * M(2, 2) - M(0, 2) * M(0, 2)) * gf[1] +
+              (M(0, 1) * M(0, 2) - M(0, 0) * M(1, 2)) * gf[2]) / det;
+    dz[2] = -(c02 * gf[0] + (M(0, 1) * M(0, 2) - M(0, 0) * M(1, 2)) * gf[1] +
+              (M(0, 0) * M(1, 1) - M(0, 1) * M(0, 1)) * gf[2]) / det;
+    return sick;
+  } else {
+    // L(i, j), i >= j, stored at pidx(j, i)
+    T L[DIM * (DIM + 1) / 2];
+#define LL(i, j) L[pidx<DIM>((j), (i))]
+    const T tiny = Lim<T>::tiny();
+    bool sick = false;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      T d = M(j, j);
+#pragma unroll
+      for (int p = 0; p < j; ++p) d = d - LL(j, p) * LL(j, p);
+      sick = sick || (d <= eps10 * M(j, j));
+      LL(j, j) = ksqrt(jmax(d, tiny));
+#pragma unroll
+      for (int i = j + 1; i < DIM; ++i) {
+        T off = M(j, i);
+#pragma unroll
+        for (int p = 0; p < j; ++p) off = off - LL(i, p) * LL(j, p);
+        LL(i, j) = off / LL(j, j);
+      }
+    }
+    T yv[DIM];
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) {
+      T s = -gf[i];
+#pragma unroll
+      for (int p = 0; p < i; ++p) s = s - LL(i, p) * yv[p];
+      yv[i] = s / LL(i, i);
+    }
+#pragma unroll
+    for (int i = DIM - 1; i >= 0; --i) {
+      T s = yv[i];
+#pragma unroll
+      for (int p = i + 1; p < DIM; ++p) s = s - LL(p, i) * dz[p];
+      dz[i] = s / LL(i, i);
+    }
+#undef LL
+    return sick;
+  }
+#undef M
+}
+
+// The fixed-schedule active-set projected-Newton loop (the reference's
+// _newton_z, pallas_kl_dual.py:245-486), one warp per instance.
+// __noinline__: inlined into the K2 kernel, nvcc 12.9 (-O3, sm_90a) built
+// a kernel whose f32 phase never moved z (its w read as NaN), while the
+// same code inlined into K1 was right; a call boundary fixes it.
+template <int DIM, typename T, typename R, typename LP>
+__device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
+                         T (&z)[DIM], int n_steps, T z0, int n_ls, int lane) {
+  constexpr int NP = DIM * (DIM + 1) / 2;
+  const int k = P.k, n = P.n;
+  const T eps = Lim<T>::eps(), tiny = Lim<T>::tiny();
+  const T inf = T(INFINITY);
+  const T max_e = T(0.9) * klog(Lim<T>::maxv());
+  const T scale_deep = T(1.0 / double(1 << (n_ls - 1)));
+  const T diag_scale = T(1.0 + 10.0 * double(Lim<T>::eps()));
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) z[j] = z0;
+
+  for (int it = 0; it < n_steps; ++it) {
+    // pass 1: y = p exp(-B'z - 1); s_j = sum y B_j; acc_ab = sum y B_a B_b
+    T s[DIM], acc[NP];
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) s[a] = T(0);
+#pragma unroll
+    for (int a = 0; a < NP; ++a) acc[a] = T(0);
+    for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+      const int i = i0 + lane;
+      if (i >= n) continue;
+      T h[DIM], lp;
+      load_lane<DIM>(P, i, h, lp);
+      const T y = kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
+#pragma unroll
+      for (int a = 0; a < DIM; ++a) {
+        const T ya = y * h[a];
+        s[a] += ya;
+#pragma unroll
+        for (int b = a; b < DIM; ++b) acc[pidx<DIM>(a, b)] += ya * h[b];
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) s[a] = warp_sum(s[a]);
+#pragma unroll
+    for (int a = 0; a < NP; ++a) acc[a] = warp_sum(acc[a]);
+
+    const T ry = pick<DIM>(s, k);
+    T f0 = ry;
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) f0 = f0 + w[i] * z[i];
+    T g[DIM], fr[DIM], gf[DIM];
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      g[j] = w[j] - s[j];
+      fr[j] = (j < k && z[j] <= T(0) && g[j] > T(0)) ? T(0) : T(1);
+      gf[j] = g[j] * fr[j];
+    }
+    // Hessian, frozen coordinates masked to a unit row/col
+    T m[NP];
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+#pragma unroll
+      for (int b = a; b < DIM; ++b) {
+        T v = acc[pidx<DIM>(a, b)] * fr[a] * fr[b];
+        if (a == b) {
+          v = v + (T(1) - fr[a]);
+          v = v * diag_scale;
+        }
+        m[pidx<DIM>(a, b)] = v;
+      }
+    }
+    T dz[DIM];
+    const bool sick = solve_small<DIM>(m, gf, dz);
+    T dz_inf = T(0), t_bd = inf;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      // sick: Jacobi-preconditioned gradient direction instead
+      if (sick) dz[j] = -gf[j] / m[pidx<DIM>(j, j)];
+      // a lam already at its bound cannot move down
+      if (j < k && z[j] <= T(0) && dz[j] < T(0)) dz[j] = T(0);
+      // fraction-to-boundary cap
+      if (j < k && dz[j] < T(0)) t_bd = jmin(t_bd, -z[j] / dz[j]);
+      dz_inf = jmax(dz_inf, kabs(dz[j]));
+    }
+    // far-field trust cap of 8 per coordinate
+    const T t_trust = T(8) / jmax(dz_inf, T(8));
+    const T t_full = jmin(jclip(t_bd, T(0), T(1)), t_trust);
+
+    // fallback candidate t* = clip(-g.dz / dz'M dz, 0, t_full)
+    T q = g[0] * dz[0];
+#pragma unroll
+    for (int j = 1; j < DIM; ++j) q = q + g[j] * dz[j];
+    T curv = T(0);
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+#pragma unroll
+      for (int b = 0; b < DIM; ++b) {
+        const T mab = a <= b ? m[pidx<DIM>(a, b)] : m[pidx<DIM>(b, a)];
+        curv = curv + mab * dz[a] * dz[b];
+      }
+    }
+    const T t_star = jmin(jmax(-q / jmax(curv, tiny), T(0)), t_full);
+    T zs[DIM], zpr[DIM];
+    const T t_pr = jmin(T(1), t_trust);
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      zs[j] = z[j] + t_star * dz[j];
+      zpr[j] = z[j] + t_pr * dz[j];
+      if (j < k) zpr[j] = jmax(zpr[j], T(0));
+    }
+
+    // pass 2: the n_ls candidates along the ray, deepest first (one exp,
+    // then a squaring per level), the fallback candidate's value and
+    // gradient, and (DIM > 8) the projected candidate's value
+    const T neg_tdeep = -(t_full * scale_deep);
+    const T neg_tstar = -t_star;
+    T ls[kMaxLs], gs[DIM];
+#pragma unroll
+    for (int l = 0; l < kMaxLs; ++l) ls[l] = T(0);
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) gs[j] = T(0);
+    T cmax = -inf, spr = T(0);
+    for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+      const int i = i0 + lane;
+      if (i >= n) continue;
+      T h[DIM], lp;
+      load_lane<DIM>(P, i, h, lp);
+      const T y = kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
+      const T wdir = bt_of<DIM>(dz, h, k);
+      const T e = neg_tdeep * wdir;
+      cmax = jmax(cmax, e);
+      T efac = kexp(jclip(e, -max_e, max_e));
+#pragma unroll
+      for (int l = 0; l < kMaxLs; ++l) {
+        if (l < n_ls) {
+          ls[l] += y * efac;
+          efac = efac * efac;
+        }
+      }
+      const T ys = y * kexp(jclip(neg_tstar * wdir, -max_e, max_e));
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) gs[j] += h[j] * ys;
+      if constexpr (DIM > 8)
+        spr += kexp(-bt_of<DIM>(zpr, h, k) - T(1) + lp);
+    }
+#pragma unroll
+    for (int l = 0; l < kMaxLs; ++l)
+      if (l < n_ls) ls[l] = warp_sum(ls[l]);
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) gs[j] = warp_sum(gs[j]);
+    cmax = warp_max(cmax);
+    if constexpr (DIM > 8) spr = warp_sum(spr);
+
+    // a lane whose deepest exponent already clips scores every candidate
+    // on a distorted factor: disqualify the whole chain
+    const bool chain_bad = cmax > max_e;
+    T best_f = f0, tf = T(0), t = t_full * scale_deep;
+#pragma unroll
+    for (int l = 0; l < kMaxLs; ++l) {
+      if (l < n_ls) {
+        T ft = ls[l];
+#pragma unroll
+        for (int i = 0; i < DIM; ++i) ft = ft + w[i] * (z[i] + t * dz[i]);
+        if (!isfinite(ft) || chain_bad) ft = inf;
+        // strict improvement over f0; on ties the larger t wins
+        if (ft < f0 && ft <= best_f) {
+          best_f = ft;
+          tf = t;
+        }
+        t = T(2) * t;
+      }
+    }
+    bool finite = true;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) finite = finite && isfinite(dz[j]);
+    const bool f_ok = best_f < f0 && finite;
+    T fs = pick<DIM>(gs, k);
+#pragma unroll
+    for (int i = 0; i < DIM; ++i) fs = fs + w[i] * zs[i];
+    T gsv[DIM];
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) gsv[j] = w[j] - gs[j];
+    const T noise = T(32.0 * double(eps)) * (T(1) + kabs(f0));
+    const bool g_ok = pgnorm<DIM>(zs, gsv, k) < T(0.81) * pgnorm<DIM>(z, g, k)
+                      && fs <= f0 + noise && finite;
+    const T t_take = f_ok ? tf : t_star;
+    const bool take = f_ok || g_ok;
+    T zn[DIM];
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      zn[j] = take ? z[j] + t_take * dz[j] : z[j];
+      if (j < k) zn[j] = jmax(zn[j], T(0));
+    }
+    if constexpr (DIM > 8) {
+      T fpr = spr;
+#pragma unroll
+      for (int i = 0; i < DIM; ++i) fpr = fpr + w[i] * zpr[i];
+      if (isfinite(fpr) && fpr < best_f && finite) {
+#pragma unroll
+        for (int j = 0; j < DIM; ++j) zn[j] = zpr[j];
+      }
+    }
+    // snap boundary landings to 0, and purge a lam below ~32 eps scale
+    // whose gradient says "decrease" (the boundary-jam fix; zinf is the
+    // old iterate's)
+    T zinf = T(0);
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) zinf = jmax(zinf, kabs(z[j]));
+    const T purge_th = T(32.0 * double(eps)) * (T(1) + zinf);
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      if (j < k && (zn[j] <= T(8.0 * double(eps)) * kabs(z[j]) ||
+                    (g[j] > T(0) && zn[j] <= purge_th)))
+        zn[j] = T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) z[j] = zn[j];
+  }
+}
+
+template <int DIM, typename T>
+__device__ __forceinline__ void load_w(const T* u, long long sub,
+                                       long long suk, const T* r,
+                                       long long srb, long long srm, int b,
+                                       int k, T (&w)[DIM]) {
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    if (j < k)
+      w[j] = u[b * sub + j * suk];
+    else if (j == k)
+      w[j] = T(1);
+    else
+      w[j] = r[b * srb + (j - k - 1) * srm];
+  }
+}
+
+// K1: the solve, then x = y / sum(y) and the measured gap f(x) - g(z)
+template <int DIM, typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
+               const T* __restrict__ A, const T* __restrict__ r,
+               const T* __restrict__ logp, long long sHb, long long sHk,
+               long long sub, long long suk, long long sAb, long long sAm,
+               long long srb, long long srm, T* __restrict__ x,
+               T* __restrict__ gap, T* __restrict__ zout, int B, int n,
+               int k, int n_steps, T z0, int n_ls) {
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;
+  const Rows<T, T> P{H + b * sHb, sHk, A + b * sAb, sAm, logp, n, k};
+  T w[DIM], z[DIM];
+  load_w<DIM>(u, sub, suk, r, srb, srm, b, k, w);
+  newton_z<DIM>(P, w, z, n_steps, z0, n_ls, lane);
+
+  T sy = T(0);
+  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+    const int i = i0 + lane;
+    if (i >= n) continue;
+    T h[DIM], lp;
+    load_lane<DIM>(P, i, h, lp);
+    sy += kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
+  }
+  sy = warp_sum(sy);
+  // sum(y) underflowed to 0 (the unbounded dual of an infeasible
+  // instance): the gap is +inf instead of NaN
+  const bool dead = sy <= T(0);
+  const T den = dead ? T(1) : sy;
+  T fp = T(0);
+  T* xb = x + (long long)b * n;
+  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+    const int i = i0 + lane;
+    if (i >= n) continue;
+    T h[DIM], lp;
+    load_lane<DIM>(P, i, h, lp);
+    const T xi = kexp(-bt_of<DIM>(z, h, k) - T(1) + lp) / den;
+    xb[i] = xi;
+    fp += xi * (klog(xi > T(0) ? xi : T(1)) - lp);
+  }
+  fp = warp_sum(fp);
+  if (lane == 0) {
+    T val = sy;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) val = val + w[j] * z[j];
+    gap[b] = dead ? T(INFINITY) : fp + val;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) zout[(long long)b * DIM + j] = z[j];
+  }
+}
+
+// K2 polish: one warm projected-Newton step in f64 (_kl_warm_polish's
+// algebra; no step for a non-finite, sick or |dz| > 1e3 direction)
+template <int DIM>
+__device__ void polish_step(const Rows<float, double>& P,
+                            const double (&w)[DIM], double (&z)[DIM],
+                            int lane) {
+  constexpr int NP = DIM * (DIM + 1) / 2;
+  const int k = P.k, n = P.n;
+  const double eps = DBL_EPSILON;
+  const double max_e = 0.9 * log(DBL_MAX);
+  double s[DIM], acc[NP];
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) s[a] = 0.0;
+#pragma unroll
+  for (int a = 0; a < NP; ++a) acc[a] = 0.0;
+  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+    const int i = i0 + lane;
+    if (i >= n) continue;
+    double h[DIM], lp;
+    load_lane<DIM>(P, i, h, lp);
+    const double y =
+        exp(jclip(-bt_of<DIM>(z, h, k) - 1.0 + lp, -max_e, max_e));
+#pragma unroll
+    for (int a = 0; a < DIM; ++a) {
+      const double ya = y * h[a];
+      s[a] += ya;
+#pragma unroll
+      for (int b = a; b < DIM; ++b) acc[pidx<DIM>(a, b)] += ya * h[b];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) s[a] = warp_sum(s[a]);
+#pragma unroll
+  for (int a = 0; a < NP; ++a) acc[a] = warp_sum(acc[a]);
+  double g[DIM], fr[DIM], gf[DIM], m[NP], dz[DIM];
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    g[j] = w[j] - s[j];
+    fr[j] = (j < k && z[j] <= 0.0 && g[j] > 0.0) ? 0.0 : 1.0;
+    gf[j] = g[j] * fr[j];
+  }
+#pragma unroll
+  for (int a = 0; a < DIM; ++a) {
+#pragma unroll
+    for (int b = a; b < DIM; ++b) {
+      double v = acc[pidx<DIM>(a, b)] * fr[a] * fr[b];
+      if (a == b) {
+        v = v + (1.0 - fr[a]);
+        v = v + 1e-13 * v;
+      }
+      m[pidx<DIM>(a, b)] = v;
+    }
+  }
+  const bool sick = solve_small<DIM>(m, gf, dz);
+  double t_bd = INFINITY;
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    if (j < k && z[j] <= 0.0 && dz[j] < 0.0) dz[j] = 0.0;
+    if (j < k && dz[j] < 0.0) t_bd = jmin(t_bd, -z[j] / dz[j]);
+  }
+  const double t = jmin(t_bd, 1.0);
+  bool ok = !sick;
+  double dz_inf = 0.0, zn[DIM];
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    double v = z[j] + t * dz[j];
+    if (j < k) {
+      v = jmax(v, 0.0);
+      if (v <= 8.0 * eps * fabs(z[j])) v = 0.0;
+    }
+    ok = ok && isfinite(v);
+    dz_inf = jmax(dz_inf, fabs(dz[j]));
+    zn[j] = v;
+  }
+  ok = ok && dz_inf <= 1e3;
+  if (ok) {
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) z[j] = zn[j];
+  }
+}
+
+// K2: the K1 f32 solve, polish_steps f64 polish steps, and the f64
+// certificate (x, gap, ineq_res, eq_res) from one exp pass
+template <int DIM>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
+                    const float* __restrict__ A, const float* __restrict__ r,
+                    const double* __restrict__ logp, long long sHb,
+                    long long sHk, long long sub, long long suk,
+                    long long sAb, long long sAm, long long srb,
+                    long long srm, double* __restrict__ x,
+                    double* __restrict__ zout, double* __restrict__ gap,
+                    double* __restrict__ ineq, double* __restrict__ eq,
+                    int B, int n, int k, int n_steps, float z0, int n_ls,
+                    int polish_steps) {
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (b >= B) return;
+  const Rows<float, double> P{H + b * sHb, sHk, A + b * sAb, sAm, logp, n, k};
+  float w32[DIM], z32[DIM];
+  load_w<DIM>(u, sub, suk, r, srb, srm, b, k, w32);
+  newton_z<DIM>(P, w32, z32, n_steps, z0, n_ls, lane);
+  double w[DIM], z[DIM];
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    w[j] = double(w32[j]);
+    z[j] = double(z32[j]);
+  }
+  for (int s = 0; s < polish_steps; ++s) polish_step<DIM>(P, w, z, lane);
+
+  double sy = 0.0;
+  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+    const int i = i0 + lane;
+    if (i >= n) continue;
+    double h[DIM], lp;
+    load_lane<DIM>(P, i, h, lp);
+    sy += exp(-bt_of<DIM>(z, h, k) - 1.0 + lp);
+  }
+  sy = warp_sum(sy);
+  const bool dead = sy <= 0.0;
+  const double den = dead ? 1.0 : sy;
+  double xbtz = 0.0, hx[DIM], nmax = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) hx[j] = 0.0;
+  double* xb = x + (long long)b * n;
+  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
+    const int i = i0 + lane;
+    if (i >= n) continue;
+    double h[DIM], lp;
+    load_lane<DIM>(P, i, h, lp);
+    const double btz = bt_of<DIM>(z, h, k);
+    const double xi = exp(-btz - 1.0 + lp) / den;
+    xb[i] = xi;
+    xbtz += xi * btz;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) hx[j] += xi * h[j];
+    nmax = jmax(nmax, -xi);
+  }
+  xbtz = warp_sum(xbtz);
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) hx[j] = warp_sum(hx[j]);
+  nmax = warp_max(nmax);
+  if (lane == 0) {
+    double wz = w[0] * z[0];
+#pragma unroll
+    for (int j = 1; j < DIM; ++j) wz = wz + w[j] * z[j];
+    // log x - log p = -B'z - 1 - log sum(y): one scalar log
+    const double f_ref = -xbtz - 1.0 - log(sy);
+    gap[b] = dead ? INFINITY : f_ref + (wz + sy);
+    double viol = jmax(nmax, 0.0), eqr = fabs(pick<DIM>(hx, k) - 1.0);
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) {
+      if (j < k) viol = jmax(viol, jmax(hx[j] - w[j], 0.0));
+      if (j > k) eqr = jmax(eqr, fabs(hx[j] - w[j]));
+    }
+    ineq[b] = viol;
+    eq[b] = eqr;
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) zout[(long long)b * DIM + j] = z[j];
+  }
+}
+
+constexpr int kThreads = kWarpsPerBlock * 32;
+
+inline int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+
+template <typename T>
+cudaError_t launch_k1(int dim, const void* H, const void* u, const void* A,
+                      const void* r, const void* logp, long long sHb,
+                      long long sHk, long long sub, long long suk,
+                      long long sAb, long long sAm, long long srb,
+                      long long srm, void* x, void* gap, void* z, int B,
+                      int n, int k, int n_steps, double z0, int n_ls,
+                      cudaStream_t stream) {
+#define KL_K1_CASE(D)                                                        \
+  case D:                                                                    \
+    kl_dual_kernel<D, T><<<blocks_for(B), kThreads, 0, stream>>>(            \
+        (const T*)H, (const T*)u, (const T*)A, (const T*)r, (const T*)logp,  \
+        sHb, sHk, sub, suk, sAb, sAm, srb, srm, (T*)x, (T*)gap, (T*)z, B, n, \
+        k, n_steps, T(z0), n_ls);                                            \
+    break;
+  switch (dim) {
+    KL_K1_CASE(2) KL_K1_CASE(3) KL_K1_CASE(4) KL_K1_CASE(5) KL_K1_CASE(6)
+    KL_K1_CASE(7) KL_K1_CASE(8) KL_K1_CASE(9) KL_K1_CASE(10) KL_K1_CASE(11)
+    KL_K1_CASE(12) KL_K1_CASE(13) KL_K1_CASE(14) KL_K1_CASE(15)
+    KL_K1_CASE(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef KL_K1_CASE
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int kl_dual_fused_f32(const void* H, const void* u, const void* A,
+                      const void* r, const void* logp, long long sHb,
+                      long long sHk, long long sub, long long suk,
+                      long long sAb, long long sAm, long long srb,
+                      long long srm, void* x, void* gap, void* z, int B,
+                      int n, int k, int m_eq, int n_steps, double z0,
+                      int n_ls, void* stream) {
+  if (n_ls < 1 || n_ls > kMaxLs) return cudaErrorInvalidValue;
+  return launch_k1<float>(k + 1 + m_eq, H, u, A, r, logp, sHb, sHk, sub, suk,
+                          sAb, sAm, srb, srm, x, gap, z, B, n, k, n_steps,
+                          z0, n_ls, (cudaStream_t)stream);
+}
+
+int kl_dual_fused_f64(const void* H, const void* u, const void* A,
+                      const void* r, const void* logp, long long sHb,
+                      long long sHk, long long sub, long long suk,
+                      long long sAb, long long sAm, long long srb,
+                      long long srm, void* x, void* gap, void* z, int B,
+                      int n, int k, int m_eq, int n_steps, double z0,
+                      int n_ls, void* stream) {
+  if (n_ls < 1 || n_ls > kMaxLs) return cudaErrorInvalidValue;
+  return launch_k1<double>(k + 1 + m_eq, H, u, A, r, logp, sHb, sHk, sub,
+                           suk, sAb, sAm, srb, srm, x, gap, z, B, n, k,
+                           n_steps, z0, n_ls, (cudaStream_t)stream);
+}
+
+int kl_dual_fused_cert_f32(const void* H, const void* u, const void* A,
+                           const void* r, const void* logp, long long sHb,
+                           long long sHk, long long sub, long long suk,
+                           long long sAb, long long sAm, long long srb,
+                           long long srm, void* x, void* z, void* gap,
+                           void* ineq, void* eq, int B, int n, int k,
+                           int m_eq, int n_steps, double z0, int n_ls,
+                           int polish_steps, void* stream) {
+  if (n_ls < 1 || n_ls > kMaxLs) return cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define KL_K2_CASE(D)                                                       \
+  case D:                                                                   \
+    kl_dual_cert_kernel<D><<<blocks_for(B), kThreads, 0, st>>>(             \
+        (const float*)H, (const float*)u, (const float*)A, (const float*)r, \
+        (const double*)logp, sHb, sHk, sub, suk, sAb, sAm, srb, srm,        \
+        (double*)x, (double*)z, (double*)gap, (double*)ineq, (double*)eq,   \
+        B, n, k, n_steps, float(z0), n_ls, polish_steps);                   \
+    break;
+  switch (k + 1 + m_eq) {
+    KL_K2_CASE(2) KL_K2_CASE(3) KL_K2_CASE(4) KL_K2_CASE(5) KL_K2_CASE(6)
+    KL_K2_CASE(7) KL_K2_CASE(8) KL_K2_CASE(9) KL_K2_CASE(10) KL_K2_CASE(11)
+    KL_K2_CASE(12) KL_K2_CASE(13) KL_K2_CASE(14) KL_K2_CASE(15)
+    KL_K2_CASE(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef KL_K2_CASE
+  return cudaGetLastError();
+}
+
+const char* kl_dual_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
