@@ -1,21 +1,34 @@
 """Smoke run of ``cvx_tpu_torch`` on one NVIDIA GPU (H100).
 
-Builds the port's CUDA kernels from ``cvx_tpu_torch/ops/csrc``, holds each
-kernel against its plain PyTorch version on the card, drives the batched
-certified KL solve end to end through the user entry points
-(``DistKL.create`` -> ``solve_certified_batch`` / ``solve``) on the bench
-family at 10,000 instances x n = 100, times the kernels with CUDA events,
-and prints one JSON line per result.  Any failed check raises.
+Builds the port's CUDA kernels from ``cvx_tpu_torch/ops/csrc`` (one nvcc
+per source, all started together), holds each kernel against its plain
+PyTorch version on the card, drives the port's paths end to end through
+the user entry points on bench.py's family at 10,000 instances x n = 100:
+
+* the batched certified KL dual solve (``DistKL.create`` ->
+  ``solve_certified_batch`` / ``solve``; kernels K1 and K2);
+* the batched primal KL solve (``solve_jittable_batch`` /
+  ``solve_jittable`` with ``method="fused"``; kernel K3);
+* the batched Cholesky (``ops.chol.cholesky_batched(method="cuda")`` on
+  4096 matrices of n = 100; kernel K4);
+
+times the kernels with CUDA events beside their plain versions, a library
+call where one computes the same function, and the least time the card
+could take (``bound_ms``), measures the host wall and device busy share of
+each path, and prints one JSON line per result.  Any failed check raises.
 
     python3 chip_smoke.py
 
 Needs one CUDA device; exits non-zero, printing no result, without one.
-Imports nothing of JAX: inputs are made with numpy from fixed seeds.
+Imports nothing of JAX: inputs are made with numpy or torch from fixed
+seeds.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -31,6 +44,28 @@ K2_DX, K2_DGAP = 1e-11, 1e-10   # f64 polish + certificate
 K2_DZ = 1e-9       # K2's polished z, as max |dz| / (1 + |z|)
 K2_DRES = 1e-12    # K2's ineq_res and eq_res, absolute
 CERT_GAP = 1e-8    # the reference's certified contract (tolSolver)
+# K3 against its plain version: late Armijo decisions at t ~ 1e10 sit at
+# the f32 resolution of the barrier value, so another summation order may
+# take another candidate (max |dx| ~ 1e-7 on the CPU against the
+# reference); f64 differs by summation order only.  The measured gaps of
+# the two x to 1e-5 (kl_dual_gap's f32 floor), the stall flags exactly.
+K3_TOL, K3_F64_TOL, K3_DGAP = 1e-5, 1e-11, 1e-5
+# K4 against its plain version, max |dL| relative to max |L|: the trailing
+# sums run in another order (f32 ~1e-6 at condition ~1e3), f64 rounding
+K4_TOL, K4_F64_TOL = 2e-5, 1e-12
+# K4's backward error ||L L^T - X|| / ||X|| may exceed
+# torch.linalg.cholesky's own by this factor (plus 10 eps)
+K4_RECON_FACTOR = 10.0
+PRIMAL_GAP = math.sqrt(torch.finfo(torch.float32).eps)   # the stall rule
+PRIMAL_CERT = 1e-4   # host f64 certificate of the primal slice's f32 x
+PRIMAL_DOBJ = 1e-4   # |f(x_primal) - f(x_certified)| per instance
+PRODUCTION = dict(max_iter=3, mu=55.0, tol=1e-8)   # bench.py's schedule
+
+# the card's peak rates (NVIDIA's H100 SXM data sheet; f64 outside the
+# tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 
 def check(ok, msg):
@@ -49,6 +84,13 @@ def bench_family(B, n, seed):
     return H, U
 
 
+def feasible_points(U, n):
+    """bench.py:164-168: weight pA + 0.05 on A, the rest spread evenly."""
+    w = -U[:, 0] + 0.05
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    return (w / 3)[:, None] * I_A + ((1 - w) / (n - 3))[:, None] * (1 - I_A)
+
+
 def random_family(k, m_eq, n, B, seed=0):
     """The dim-8/16 stress family of the reference's tests, with B scaled
     copies of the bounds."""
@@ -62,7 +104,7 @@ def random_family(k, m_eq, n, B, seed=0):
     return H, U, A, R
 
 
-def cases(dev):
+def dual_cases(dev):
     """(name, Hs, U, A, R) on the card: shared rows are stride-0 expands."""
     f32 = torch.float32
 
@@ -92,6 +134,51 @@ def cases(dev):
     out.append(("ragged B=37 n=77", t(H)[None].expand(37, -1, -1), t(U),
                 None, None))
     return out
+
+
+def primal_args(H, U, X0, dev, dtype=torch.float32):
+    """K3's (Hs, u, A, b, x0) on the card: the shared rows, the sum-to-one
+    row and its right-hand side as stride-0 expands."""
+    B, n = X0.shape
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    ones = torch.ones((1, 1, n), dtype=dtype, device=dev)
+    return (t(H)[None].expand(B, -1, -1), t(U), ones.expand(B, -1, -1),
+            ones[0, :, :1].expand(B, 1), t(X0))
+
+
+def primal_cases(dev):
+    """(name, dtype, K3 args) for phase 3."""
+    out = []
+    H, U = bench_family(10000, 100, seed=0)
+    out.append(("bench 10000 x n=100, k=2", torch.float32,
+                primal_args(H, U, feasible_points(U, 100), dev)))
+    out.append(("bench 10000 x n=100, k=1", torch.float32,
+                primal_args(H[:1], U[:, :1], feasible_points(U, 100), dev)))
+    H, U = bench_family(37, 77, seed=2)
+    for dtype in (torch.float32, torch.float64):
+        out.append((f"ragged B=37 n=77 {str(dtype)[6:]}", dtype,
+                    primal_args(H, U, feasible_points(U, 77), dev, dtype)))
+    # lane 2 starts on a bound (x0 = 0 at one coordinate): log 0 and 1/0
+    # make its dx non-finite, and the no-step guard must hold it at x0
+    H, U = bench_family(4, 100, seed=3)
+    X0 = feasible_points(U, 100); X0[2, 40] = 0.0
+    out.append(("x0 on a bound (lane 2)", torch.float32,
+                primal_args(H, U, X0, dev)))
+    return out
+
+
+def spd_batch(B, n, dtype, dev, seed):
+    """B SPD matrices A A^T / n + 0.01 I, A standard normal (condition
+    ~1e3), made on the card from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, n, n), generator=g, device=dev,
+                    dtype=torch.float64)
+    X = A @ A.transpose(1, 2) / n + 0.01 * torch.eye(n, device=dev,
+                                                     dtype=torch.float64)
+    return X.to(dtype)
 
 
 def max_abs(d, lanes):
@@ -138,6 +225,71 @@ def compare_k2(name, got, ref):
     return dx
 
 
+def compare_k3(name, dtype, args, kern, plain, prob=None, pars=None):
+    """K3 against its plain version on x; on the bench shape also the
+    measured gap and the stall flags of the fused route's Solution."""
+    kw = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
+    xk, xp = kern(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    nan_k, nan_p = torch.isnan(xk), torch.isnan(xp)
+    check(torch.equal(nan_k, nan_p), f"K3 {name}: NaN in the same places "
+          f"({int(nan_p.sum())})")
+    dx = float((xk - xp).nan_to_num().abs().max())
+    tol = K3_TOL if dtype == torch.float32 else K3_F64_TOL
+    print(f"  K3 {name}: max|dx| {dx:.3e}")
+    check(dx <= tol, f"K3 {name}: max|dx| <= {tol:g}")
+    if prob is not None:
+        sk = prob._fused_solution(args[1], xk, pars)
+        sp = prob._fused_solution(args[1], xp, pars)
+        dg = float((sk.duality_gap - sp.duality_gap).abs().max())
+        print(f"  K3 {name}: max|gap| kernel {float(sk.duality_gap.abs().max()):.3e}"
+              f", plain {float(sp.duality_gap.abs().max()):.3e}; max|dgap| "
+              f"{dg:.3e}; stalled {int(sk.stalled.sum())}, "
+              f"{int(sp.stalled.sum())}")
+        check(dg <= K3_DGAP and torch.equal(sk.stalled, sp.stalled),
+              f"K3 {name}: measured gaps within {K3_DGAP:g}, identical "
+              "stalled flags")
+    return dx, xk
+
+
+def recon_err(L, X):
+    """Per-matrix ||L L^T - X||_F / ||X||_F, in f64."""
+    L64, X64 = L.double(), X.double()
+    return (torch.linalg.matrix_norm(L64 @ L64.transpose(1, 2) - X64)
+            / torch.linalg.matrix_norm(X64))
+
+
+def compare_k4(name, X, kern, plain, Lk=None):
+    """K4 against its plain version (NaN pattern, max |dL|) and its
+    backward error against torch.linalg.cholesky's; ``Lk`` is the kernel's
+    factor where the caller already has it (else ``kern(X)``)."""
+    Lk = kern(X) if Lk is None else Lk
+    Lp = plain(X)
+    Ll, info = torch.linalg.cholesky_ex(X)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isnan(Lk), torch.isnan(Lp)),
+          f"K4 {name}: NaN in the same places "
+          f"({int(torch.isnan(Lp).any(dim=(1, 2)).sum())} lanes)")
+    ok = ~torch.isnan(Lp).any(dim=(1, 2))
+    check(bool(ok.any()) and bool((info[ok] == 0).all())
+          and torch.equal(~ok, info > 0),
+          f"K4 {name}: the non-SPD lanes are exactly those "
+          "torch.linalg.cholesky refuses")
+    scale = float(Lp[ok].abs().max())
+    dL = float((Lk[ok] - Lp[ok]).abs().max())
+    tol = K4_TOL if X.dtype == torch.float32 else K4_F64_TOL
+    rk = float(recon_err(Lk[ok], X[ok]).max())
+    rl = float(recon_err(Ll[ok], X[ok]).max())
+    eps = torch.finfo(X.dtype).eps
+    print(f"  K4 {name}: max|dL| {dL:.3e} (max|L| {scale:.3e}); "
+          f"||LL'-X||/||X|| kernel {rk:.3e}, torch.linalg.cholesky {rl:.3e}")
+    check(dL <= tol * scale and rk <= K4_RECON_FACTOR * rl + 10 * eps
+          and torch.equal(torch.triu(Lk[ok], 1), torch.zeros_like(Lk[ok])),
+          f"K4 {name}: max|dL| <= {tol:g} max|L|, backward error <= "
+          f"{K4_RECON_FACTOR:g}x torch.linalg.cholesky's, upper triangle 0")
+    return dL
+
+
 def time_ms(fn, reps):
     """Mean ms per call over ``reps`` calls, CUDA events, after warm-up."""
     fn()
@@ -152,16 +304,134 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def in_turns(fns, reps, order):
+    """Best ms of each named function, timed in the given order."""
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(time_ms(fns[name], reps[name]))
+    return {name: min(v) for name, v in runs.items()}, runs
+
+
+def bound(nbytes, ops32=0.0, ops64=0.0):
+    """(least ms, what sets it): the bytes moved at the HBM rate against
+    the operations at the card's peak for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops32 / F32_OPS_PER_S + ops64 / F64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bytes_in(*ts):
+    """Bytes of the inputs, each storage read once (a stride-0 expand
+    counts its one row)."""
+    seen, total = set(), 0
+    for t in ts:
+        if t is None:
+            continue
+        s = t.untyped_storage()
+        if s.data_ptr() not in seen:
+            seen.add(s.data_ptr())
+            total += s.nbytes()
+    return total
+
+
+def bytes_out(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# Operation counts, per coordinate of one instance, read off the plain
+# versions (the kernels do the same arithmetic).  An exp or log counts as
+# one operation at the float peak: a libm expf/logf is some ten float
+# instructions and one special-function op, so this errs toward a lower
+# bound.  Warp reductions count one add per term.
+def k1_ops_per_coord(dim, n_steps, n_ls=5):
+    step = dim * dim + 7 * dim + 8 + 3 * n_ls
+    if dim > 8:                      # the projected full-step candidate
+        step += 2 * dim + 4
+    return n_steps * step + 2 * dim + 9   # + the epilogue (x, gap)
+
+
+def k2_ops64_per_coord(dim, k, m_eq, polish_steps=2):
+    polish = dim * dim + 3 * dim + 2
+    cert = 2 * dim + 8 + 2 * k + 2 * m_eq
+    return polish_steps * polish + cert
+
+
+def k4_bytes(B, n, itemsize):
+    """Bytes K4's function must move: the lower triangle of each input
+    (all a Cholesky reads of a symmetric matrix) and the whole factor,
+    upper zeros included."""
+    return B * (n * (n + 1) // 2 + n * n) * itemsize
+
+
+def k3_ops_per_coord(k, n_steps, n_ls=12):
+    # margins and f0 (2k + 6, one log), gradient / 1/h / Woodbury sums
+    # (9 + 7k + k(k + 1)), H^-1 g, H^-1 a and Schur sums (6 + 5k), dx, q,
+    # rows . dx and the step bound (8 + 2k), n_ls candidates (7 and a log
+    # each), the update (2)
+    flops = 31 + 16 * k + k * (k + 1) + 7 * n_ls
+    return n_steps * (flops + 1 + n_ls)
+
+
+def kernel_counts(*kernels):
+    return {k.__name__: k.launches for k in kernels}
+
+
+def zero_counts(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def device_busy(fn, reps):
+    """(host wall ms median of ``reps`` calls ending in synchronize(),
+    device busy ms per call and device ops per call from a torch.profiler
+    trace of ``reps`` calls); the profiler figures are None where the
+    trace holds no device time."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us, ops = 0.0, 0
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += us
+            ops += evt.count
+    wall = statistics.median(walls)
+    if busy_us <= 0:
+        return wall, None, None
+    return wall, busy_us / 1e3 / reps, ops / reps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from cvx_tpu_torch import DistKL
+    from cvx_tpu_torch import DistKL, SolverParams
     from cvx_tpu_torch.diagnostics import kl_gap_certificate_np
     from cvx_tpu_torch.ops import _build
+    from cvx_tpu_torch.ops.chol import (cholesky_batched,
+                                        cholesky_batched_cuda,
+                                        cholesky_batched_plain)
+    from cvx_tpu_torch.ops.kl_barrier import (kl_barrier_fused,
+                                              kl_barrier_fused_plain)
     from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                                            kl_dual_fused_cert_plain,
                                            kl_dual_fused_plain)
+    kernels = (kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused,
+               cholesky_batched_cuda)
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -176,15 +446,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = _build.load_kl_dual()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib._name}")
+    libs = _build.build_all()
+    for load in (_build.load_kl_dual, _build.load_kl_barrier,
+                 _build.load_chol):
+        load()
+    print(f"build: {time.perf_counter() - t0:.1f} s -> "
+          f"{[p.name for p in libs]}")
 
     # 3. kernel vs plain on the card
     print("phase 3: kernels against their plain versions")
     k1_err = k2_err = 0.0
-    for cname, Hs, U, A, R in cases(dev):
+    for cname, Hs, U, A, R in dual_cases(dev):
         got = kl_dual_fused(Hs, U, A, R)
         ref = kl_dual_fused_plain(Hs, U, A, R)
         torch.cuda.synchronize()
@@ -203,33 +477,56 @@ def main() -> int:
     U64 = torch.tensor(U, dtype=torch.float64, device=dev)
     compare_k1("f64 ragged B=37 n=77", kl_dual_fused(H64, U64),
                kl_dual_fused_plain(H64, U64), K1_F64_TOL, K1_F64_DZ)
-    check(kl_dual_fused.launches > 0 and kl_dual_fused_cert.launches > 0,
-          f"launch counters K1 {kl_dual_fused.launches}, K2 "
-          f"{kl_dual_fused_cert.launches}")
-
-    # 4. the slice, through the user entry points
-    print("phase 4: the slice (10,000 instances, n = 100)")
+    pars = SolverParams(**PRODUCTION)
     H, U = bench_family(10000, 100, seed=0)
+    prob = DistKL.create(100, H=H.astype(np.float32),
+                         u=np.zeros(2, np.float32))
+    k3_err = 0.0
+    for cname, dtype, args in primal_cases(dev):
+        err, xk = compare_k3(cname, dtype, args, kl_barrier_fused,
+                             kl_barrier_fused_plain,
+                             prob if cname.endswith("k=2") else None, pars)
+        if cname.endswith("k=2"):
+            k3_err = err
+        if cname.startswith("x0 on a bound"):
+            check(torch.equal(xk[2], args[4][2])
+                  and bool(torch.isfinite(xk).all()),
+                  "K3: the no-step guard holds lane 2 at x0, every x finite")
+    for dtype in (torch.float32, torch.float64):
+        for n, B in ((77, 67), (100, 67), (128, 67), (256, 23), (512, 13)):
+            X = spd_batch(B, n, dtype, dev, seed=n)
+            X[B // 2, n // 3, n // 3] = -1.0   # one lane is not SPD
+            compare_k4(f"{str(dtype)[6:]} B={B} n={n}", X,
+                       cholesky_batched_cuda, cholesky_batched_plain)
+    check(all(k.launches > 0 for k in kernels),
+          f"launch counters {kernel_counts(*kernels)}")
+
+    # 4. the paths, through the user entry points, each with the counters
+    # set to 0 just before it and read just after
+    print("phase 4: the paths (10,000 instances, n = 100)")
     f32 = dict(dtype=torch.float32, device=dev)
     Ht, Ut = torch.tensor(H, **f32), torch.tensor(U, **f32)
     Hb = Ht[None].expand(10000, -1, -1)
     x32, _, _ = kl_dual_fused(Hb, Ut)    # bench.py's f32 x, judged below
-    prob = DistKL.create(100, H=Ht, u=torch.zeros(2, **f32))
+    prob_d = DistKL.create(100, H=Ht, u=torch.zeros(2, **f32))
     prob_one = DistKL.create(100, H=Ht, u=Ut[0])
     torch.cuda.synchronize()
-    kl_dual_fused.launches = kl_dual_fused_cert.launches = 0
+
+    zero_counts(*kernels)
     t0 = time.perf_counter()
-    sol = prob.solve_certified_batch(Ut)                    # K2
-    sol_k1 = prob.solve_certified_batch(Ut, fused_cert=False)  # K1 + f64
-    one = prob_one.solve(method="dual_fused")               # K1
+    sol = prob_d.solve_certified_batch(Ut)                      # K2
+    sol_k1 = prob_d.solve_certified_batch(Ut, fused_cert=False)  # K1 + f64
+    one = prob_one.solve(method="dual_fused")                   # K1
     torch.cuda.synchronize()
-    slice_s = time.perf_counter() - t0
-    launches = {"kl_dual_fused": kl_dual_fused.launches,
-                "kl_dual_fused_cert": kl_dual_fused_cert.launches}
-    print(f"  slice wall {slice_s:.3f} s (first calls); launches {launches}")
-    check(launches == {"kl_dual_fused": 2, "kl_dual_fused_cert": 1},
-          "the entry points launched K1 twice (fused_cert=False, solve) "
-          "and K2 once (auto)")
+    dual_s = time.perf_counter() - t0
+    launches = kernel_counts(*kernels)
+    print(f"  dual path wall {dual_s:.3f} s (first calls); launches "
+          f"{launches}")
+    check(launches == {"kl_dual_fused": 2, "kl_dual_fused_cert": 1,
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 0},
+          "the dual path launched K1 twice (fused_cert=False, solve) and "
+          "K2 once (auto)")
+    main_launches = dict(launches)
     for label, s in (("auto (K2)", sol), ("fused_cert=False (K1+f64)",
                                           sol_k1)):
         gmax = float(s.duality_gap.abs().max())
@@ -263,46 +560,194 @@ def main() -> int:
     check(float(cert32.max()) <= K1_TOL,
           f"host f64 certificate of K1's f32 x <= {K1_TOL:g}")
 
-    # 5. times at 10,000 x n = 100 (plain, kernel, kernel, plain)
-    print("phase 5: times at 10,000 x n = 100 (CUDA events)")
-    timed = {}
+    # the primal path: a model made from numpy data with no device lands
+    # on the card
+    X0 = feasible_points(U, 100).astype(np.float32)
+    prob_p = DistKL.create(100, H=H.astype(np.float32),
+                           u=np.zeros(2, np.float32))
+    check(prob_p.H.device.type == "cuda",
+          "DistKL.create with no device put the model on the card")
+    X0t = torch.tensor(X0, **f32)
+    torch.cuda.synchronize()
+    zero_counts(*kernels)
+    t0 = time.perf_counter()
+    psol = prob_p.solve_jittable_batch(Ut, X0t, method="fused", pars=pars)
+    prob_p1 = DistKL.create(100, H=H.astype(np.float32),
+                            u=U[0].astype(np.float32))
+    pone = prob_p1.solve_jittable(X0t[0], method="fused", pars=pars)
+    torch.cuda.synchronize()
+    primal_s = time.perf_counter() - t0
+    launches = kernel_counts(*kernels)
+    print(f"  primal path wall {primal_s:.3f} s (first calls); launches "
+          f"{launches}")
+    check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
+                       "kl_barrier_fused": 2, "cholesky_batched_cuda": 0},
+          "the primal path launched K3 twice (solve_jittable_batch, "
+          "solve_jittable) and nothing else")
+    main_launches["kl_barrier_fused"] = launches["kl_barrier_fused"]
+    gmax = float(psol.duality_gap.abs().max())
+    nst = int(psol.stalled.sum())
+    print(f"  fused: max|gap| {gmax:.3e}, max ineq_res "
+          f"{float(psol.ineq_res.max()):.3e}, max eq_gap "
+          f"{float(psol.eq_gap.max()):.3e}, stalled {nst}, iters "
+          f"{int(psol.iters[0])}")
+    check(tuple(psol.x.shape) == (10000, 100)
+          and bool(torch.isfinite(psol.x).all())
+          and bool((psol.iters == 21).all()),
+          "fused: x finite, shape (10000, 100), 21 Newton steps each")
+    check(nst == 0 and gmax <= PRIMAL_GAP,
+          f"fused: nothing stalled, max|gap| <= sqrt(eps_f32) = "
+          f"{PRIMAL_GAP:.3e}")
+    xp = psol.x.cpu().numpy()
+    certp = kl_gap_certificate_np(xp, H, U)
+    print(f"  kl_gap_certificate_np on the primal x: max {certp.max():.3e}, "
+          f"median {np.median(certp):.3e}")
+    check(float(certp.max()) <= PRIMAL_CERT,
+          f"host f64 certificate of the primal x <= {PRIMAL_CERT:g}")
+    xc = sol.x.cpu().numpy()
+    f_p = np.sum(xp * np.log(100.0 * np.maximum(xp, 1e-300)), axis=1)
+    f_c = np.sum(xc * np.log(100.0 * np.maximum(xc, 1e-300)), axis=1)
+    dobj = float(np.abs(f_p - f_c).max())
+    check(dobj <= PRIMAL_DOBJ,
+          f"primal objective agrees with the certified dual slice's: "
+          f"max|df| {dobj:.3e} <= {PRIMAL_DOBJ:g}")
+    check(not bool(pone.stalled)
+          and float((pone.x - psol.x[0]).abs().max()) == 0.0,
+          f"solve_jittable(method='fused') on instance 0: gap "
+          f"{float(pone.duality_gap):.3e}, x equal to the batch's")
+
+    # the batched Cholesky path
+    Xc = spd_batch(4096, 100, torch.float32, dev, seed=7)
+    torch.cuda.synchronize()
+    zero_counts(*kernels)
+    Lc = cholesky_batched(Xc, method="cuda")
+    torch.cuda.synchronize()
+    launches = kernel_counts(*kernels)
+    print(f"  Cholesky path launches {launches}")
+    check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 1},
+          "cholesky_batched(method='cuda') launched K4 once")
+    main_launches["cholesky_batched_cuda"] = launches["cholesky_batched_cuda"]
+    check(bool(torch.isfinite(Lc).all()) and tuple(Lc.shape) == (4096, 100,
+                                                                  100),
+          "cholesky_batched: L finite, shape (4096, 100, 100)")
+    # the path's own factor against the plain version at the path's shape
+    k4_err = compare_k4("the path's f32 B=4096 n=100", Xc,
+                        cholesky_batched_cuda, cholesky_batched_plain, Lk=Lc)
+
+    # 5. times (CUDA events, in turns), with each kernel's bound
+    print("phase 5: times (CUDA events)")
+    record = {}
+    order = ("plain", "kernel", "kernel", "plain")
     for kname, kern, plain in (("kl_dual_fused", kl_dual_fused,
                                 kl_dual_fused_plain),
                                ("kl_dual_fused_cert", kl_dual_fused_cert,
                                 kl_dual_fused_cert_plain)):
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = plain if which == "plain" else kern
-            reps = 3 if which == "plain" else 20
-            runs[which].append(time_ms(lambda: fn(Hb, Ut), reps))
-        timed[kname] = (min(runs["kernel"]), min(runs["plain"]))
-        print(f"  {kname}: kernel {runs['kernel']} ms, plain "
+        best, runs = in_turns({"plain": lambda: plain(Hb, Ut),
+                               "kernel": lambda: kern(Hb, Ut)},
+                              {"plain": 3, "kernel": 20}, order)
+        record[kname] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                             library_ms=None)
+        print(f"  {kname} 10000 x n=100: kernel {runs['kernel']} ms, plain "
               f"{runs['plain']} ms  [{smi}]")
+    x, gap, z = kl_dual_fused(Hb, Ut)
+    record["kl_dual_fused"]["bound"] = bound(
+        bytes_in(Hb, Ut) + bytes_out(x, gap, z),
+        ops32=10000 * 100 * k1_ops_per_coord(3, 16))
+    out2 = kl_dual_fused_cert(Hb, Ut)
+    record["kl_dual_fused_cert"]["bound"] = bound(
+        bytes_in(Hb, Ut) + bytes_out(*out2),
+        ops32=10000 * 100 * k1_ops_per_coord(3, 16),
+        ops64=10000 * 100 * k2_ops64_per_coord(3, 2, 0))
     # f64 models (DistKL.create's default for f64 data) reach K1 in f64
     Hb64 = Ht.double()[None].expand(10000, -1, -1)
     Ut64 = Ut.double()
-    runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
-        fn = kl_dual_fused_plain if which == "plain" else kl_dual_fused
-        runs[which].append(time_ms(lambda: fn(Hb64, Ut64),
-                                   3 if which == "plain" else 20))
+    best, runs = in_turns({"plain": lambda: kl_dual_fused_plain(Hb64, Ut64),
+                           "kernel": lambda: kl_dual_fused(Hb64, Ut64)},
+                          {"plain": 3, "kernel": 20}, order)
     print(f"  kl_dual_fused f64: kernel {runs['kernel']} ms, plain "
           f"{runs['plain']} ms  [{smi}]")
 
-    src = "cvx_tpu_torch/ops/csrc/kl_dual.cu"
-    record = {"kernels": [
-        {"name": "kl_dual_fused", "route": "cuda", "source": src,
-         "replaces": "cvx_tpu/ops/pallas_kl_dual.py:953",
-         "launches": launches["kl_dual_fused"], "max_abs_err": k1_err,
-         "ms": timed["kl_dual_fused"][0],
-         "plain_ms": timed["kl_dual_fused"][1]},
-        {"name": "kl_dual_fused_cert", "route": "cuda", "source": src,
-         "replaces": "cvx_tpu/ops/pallas_kl_dual.py:836",
-         "launches": launches["kl_dual_fused_cert"], "max_abs_err": k2_err,
-         "ms": timed["kl_dual_fused_cert"][0],
-         "plain_ms": timed["kl_dual_fused_cert"][1]},
-    ]}
-    print(json.dumps(record))
+    kargs = primal_args(H, U, X0, dev)
+    kw = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
+    best, runs = in_turns(
+        {"plain": lambda: kl_barrier_fused_plain(*kargs, **kw),
+         "kernel": lambda: kl_barrier_fused(*kargs, **kw)},
+        {"plain": 3, "kernel": 20}, order)
+    record["kl_barrier_fused"] = dict(ms=best["kernel"],
+                                      plain_ms=best["plain"],
+                                      library_ms=None)
+    xk = kl_barrier_fused(*kargs, **kw)
+    record["kl_barrier_fused"]["bound"] = bound(
+        bytes_in(*kargs) + bytes_out(xk),
+        ops32=10000 * 100 * k3_ops_per_coord(2, 21))
+    print(f"  kl_barrier_fused 10000 x n=100, 21 steps: kernel "
+          f"{runs['kernel']} ms, plain {runs['plain']} ms  [{smi}]")
+
+    chol_rows = []
+    for B, n in ((4096, 100), (4096, 128), (1024, 256), (256, 512)):
+        X = spd_batch(B, n, torch.float32, dev, seed=B + n)
+        best, runs = in_turns(
+            {"plain": lambda: cholesky_batched_plain(X),
+             "kernel": lambda: cholesky_batched_cuda(X),
+             "library": lambda: torch.linalg.cholesky_ex(X)},
+            {"plain": 3, "kernel": 20, "library": 20},
+            ("plain", "kernel", "library", "library", "kernel", "plain"))
+        bms, by = bound(k4_bytes(B, n, 4), ops32=B * n ** 3 / 3)
+        chol_rows.append(dict(B=B, n=n, ms=best["kernel"],
+                              plain_ms=best["plain"],
+                              library_ms=best["library"], bound_ms=bms,
+                              bound_by=by))
+        print(f"  cholesky f32 {B} x {n}: kernel {runs['kernel']} ms, plain "
+              f"{runs['plain']} ms, torch.linalg.cholesky_ex "
+              f"{runs['library']} ms, bound {bms:.4f} ms ({by})  [{smi}]")
+    head = chol_rows[0]
+    record["cholesky_batched_cuda"] = dict(
+        ms=head["ms"], plain_ms=head["plain_ms"],
+        library_ms=head["library_ms"],
+        bound=(head["bound_ms"], head["bound_by"]))
+    print(json.dumps({"cholesky_sweep": chol_rows, "card": smi}))
+
+    # 6. where the time goes: host wall and device busy share of each path
+    print("phase 6: host wall and device busy share per call")
+    for label, fn in (
+            ("primal fused (K3 + kl_dual_gap)",
+             lambda: prob_p.solve_jittable_batch(Ut, X0t, method="fused",
+                                                 pars=pars)),
+            ("dual auto (K2)", lambda: prob_d.solve_certified_batch(Ut)),
+            ("dual fused_cert=False (K1 + f64 finish)",
+             lambda: prob_d.solve_certified_batch(Ut, fused_cert=False)),
+            ("cholesky_batched cuda 4096 x 100",
+             lambda: cholesky_batched(Xc, method="cuda"))):
+        wall, busy, ops = device_busy(fn, 10)
+        share = "not measured" if busy is None else f"{busy / wall:.3f}"
+        busy_s = "not measured" if busy is None else f"{busy:.4f}"
+        print(json.dumps({"path": label, "host_wall_ms": wall,
+                          "device_busy_ms": busy, "device_ops": ops,
+                          "card": smi}))
+        print(f"  {label}: host wall {wall:.4f} ms, device busy {busy_s} "
+              f"ms, busy share {share}")
+
+    srcs = {"kl_dual_fused": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
+            "kl_dual_fused_cert": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
+            "kl_barrier_fused": "cvx_tpu_torch/ops/csrc/kl_barrier.cu",
+            "cholesky_batched_cuda": "cvx_tpu_torch/ops/csrc/chol.cu"}
+    replaces = {"kl_dual_fused": "cvx_tpu/ops/pallas_kl_dual.py:953",
+                "kl_dual_fused_cert": "cvx_tpu/ops/pallas_kl_dual.py:836",
+                "kl_barrier_fused": "cvx_tpu/ops/pallas_kl.py:295",
+                "cholesky_batched_cuda": "cvx_tpu/ops/pallas_chol.py:139"}
+    errs = {"kl_dual_fused": k1_err, "kl_dual_fused_cert": k2_err,
+            "kl_barrier_fused": k3_err, "cholesky_batched_cuda": k4_err}
+    line = {"kernels": []}
+    for kname, rec in record.items():
+        bms, by = rec["bound"]
+        line["kernels"].append({
+            "name": kname, "route": "cuda", "source": srcs[kname],
+            "replaces": replaces[kname], "launches": main_launches[kname],
+            "max_abs_err": errs[kname], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": rec["library_ms"]})
+    print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,13 @@ Hopper (H100).
 The JAX package ``cvx_tpu`` is the reference; this package mirrors its
 module paths and is tested against it on the same inputs.  Ported so far:
 the batched KL scenario solve through the closed-form dual
-(``models.DistKL``: ``solve(method="dual_fused")``, ``solve_certified``,
-``solve_certified_batch``) with its two kernels in ``ops.kl_dual``.
+(``models.DistKL``: ``solve(method="dual_fused" | "dual_fast")``,
+``solve_certified``, ``solve_certified_batch``) with its two kernels in
+``ops.kl_dual``; the batched primal solve (``solve_jittable_batch`` /
+``solve_jittable`` with ``method="fused"`` or ``"BR_fast"``) with its
+kernel in ``ops.kl_barrier``; and the batched Cholesky
+(``ops.cholesky_batched``) with its kernel in ``ops.chol``.  ``DistKL``
+puts a problem on the card unless the caller passes ``device="cpu"``.
 Importing the package builds nothing: the CUDA kernels are compiled at
 their first launch on a CUDA tensor.
 """

@@ -16,10 +16,12 @@ from .models.dist_kl import DistKL
 from .solvers.types import Solution
 
 
-def distkl_from_numpy(d, *, device="cpu", dtype=None) -> DistKL:
+def distkl_from_numpy(d, *, device="cuda", dtype=None) -> DistKL:
     """The port's ``DistKL`` from the fields H, u, A, r, n, prior of a
     reference ``DistKL`` (arrays anything ``np.asarray`` takes, prior may
-    be None).  ``dtype`` defaults to the dtype of H."""
+    be None).  ``dtype`` defaults to the dtype of H.  ``device`` defaults
+    to the card, as ``DistKL.create``'s does; pass ``device="cpu"`` for the
+    plain PyTorch versions."""
     H = np.asarray(d.H)
     dtype = dtype or torch.from_numpy(np.zeros(0, H.dtype)).dtype
 

@@ -1,44 +1,57 @@
-"""Kullback–Leibler distance minimization over discrete distributions: the
-dual side of ``cvx_tpu/models/dist_kl.py``.
+"""Kullback–Leibler distance minimization over discrete distributions.
+
+Counterpart of ``cvx_tpu/models/dist_kl.py``:
 
     Q* = argmin_Q  d_KL(Q, P)   s.t.   H Q <= u,   A Q = r,
 
 with d_KL(Q, P) = sum_j q_j (log q_j - log p_j), P uniform (the
 reference's Dist_KL, cvx/Dist_KL.scala:218) or a general strictly positive
-prior.  The dual (Dist_KL.scala:114-171, docs/maxent.pdf) is
+prior.  Both routes of the reference:
 
-    -L*(z) = w.z + R.exp(-B'z),    R = p/e,  B = [H; 1'; A],  w = (u, 1, r),
+* PRIMAL: objective x.log(x/p), gradient 1 + log x - log p, diagonal
+  Hessian 1/x (Dist_KL.scala:223-239); the rows of H and positivity as
+  inequalities; [1'; A] x = [1; r] as equalities.  Ported: the whole solve
+  in one kernel (``method="fused"``, K3) and the structured barrier
+  (``"BR_fast"``) from a given strictly feasible point, with the measured
+  certificate ``kl_dual_gap``.
+* DUAL: -L*(z) = w.z + R.exp(-B'z), R = p/e, B = [H; 1'; A], w = (u, 1, r)
+  (Dist_KL.scala:114-171, docs/maxent.pdf), the primal recovered as
+  Q(z) = R exp(-B'z) / sum.  Ported: the whole dual solve in one kernel
+  (``"dual_fused"``, K1), its fallback past dual dim 16 (``"dual_fast"``,
+  ``solve_dual_newton``), the certified routes (``solve_certified``,
+  ``solve_certified_batch``) and ``kl_certify``.
 
-and the primal is recovered as Q(z) = R exp(-B'z) / sum.
-
-This module ports the routes of the batched KL scenario solve: the whole
-dual solve in one kernel (``solve(method="dual_fused")``), the certified
-routes (``solve_certified``, ``solve_certified_batch``) and the warm
-branch of ``kl_certify``.  The other routes of the reference raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Every batched entry point takes per-instance bounds against the model's
+shared rows, the written-out batch axis of the reference's
+``vmap(lambda u_i: DistKL.create(n, H, u_i).solve...)``.  The generic
+core (phase-I, BR, PD and the barrier on the dual) is ROADMAP M7 and
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..duality import _polish_dual, _small_solve
+from ..ops.kl_barrier import fused_final_t, fused_n_outer, kl_barrier_fused
 from ..ops.kl_dual import (_FUSED_MAX_DIM, _certify_f64, _Ctx, _polish_f64,
-                           _residuals, kl_dual_fused, kl_dual_fused_cert)
+                           _residuals, _solve_small, kl_dual_fused,
+                           kl_dual_fused_cert)
+from ..solvers.structured import barrier_solve_structured
 from ..solvers.types import Solution, SolverParams
 
+_M7 = "ROADMAP M7 (the generic core: {})"
 _NOT_PORTED = {
-    "dual_fast": "ROADMAP M4 (the XLA dual_fast route, solve_dual_newton)",
-    "dual": "ROADMAP M7 (the generic core: duality.solve_dual)",
-    "dual_BR": "ROADMAP M7 (the generic core: duality.solve_dual)",
-    "dual_PD": "ROADMAP M7 (the generic core: duality.solve_dual)",
-    "BR": "ROADMAP M7 (the generic core: barrier_solve)",
-    "PD": "ROADMAP M7 (the generic core: primal_dual_solve)",
-    "BR_fast": "ROADMAP M6 (the primal KL routes)",
-    "fused": "ROADMAP M6 (the primal KL routes, kernel K3)",
+    "dual": _M7.format("duality.solve_dual"),
+    "dual_BR": _M7.format("duality.solve_dual"),
+    "dual_PD": _M7.format("duality.solve_dual"),
+    "BR": _M7.format("barrier_solve"),
+    "PD": _M7.format("primal_dual_solve"),
 }
 
 
@@ -54,24 +67,110 @@ def _prior_terms(prior, n, dtype, device=None):
 
 
 @dataclass
-class _NegDualObjective:
-    """-L*(z) = w.z + R.exp(-B'z) (convex) for one instance."""
+class KLObjective:
+    """d_KL(x, p) = x . (log x - log p); grad 1 + log x - log p; hess
+    diag(1/x) (Dist_KL.scala:223-239), at points (..., n).  ``log_prior``
+    None is the reference's uniform prior p = 1/n."""
 
-    B: torch.Tensor   # (mI + 1 + mE, n)
-    w: torch.Tensor   # (mI + 1 + mE,)
+    n: int
+    log_prior: torch.Tensor | None = None
+
+    def _logp(self, x):
+        if self.log_prior is None:
+            return torch.tensor(-math.log(float(self.n)), dtype=x.dtype,
+                                device=x.device)
+        return self.log_prior.to(x.dtype)
+
+    def value(self, x):
+        return (x * (torch.log(x) - self._logp(x))).sum(dim=-1)
+
+    def grad(self, x):
+        return 1.0 + torch.log(x) - self._logp(x)
+
+    def hess(self, x):
+        return torch.diag_embed(1.0 / x)
+
+    def hess_diag(self, x):
+        return 1.0 / x
+
+
+@dataclass
+class _NegDualObjective:
+    """-L*(z) = w.z + R.exp(-B'z) (convex).  ``w`` is (dim,) for one
+    instance or (Bt, dim) per instance, against points z (Bt, ..., dim)."""
+
+    B: torch.Tensor   # (mI + 1 + mE, n), shared
+    w: torch.Tensor   # (mI + 1 + mE,) or (Bt, mI + 1 + mE)
     R: torch.Tensor   # (n,)
+
+    def _w(self, z):
+        if self.w.dim() == 1:
+            return self.w
+        return self.w.reshape(self.w.shape[0], *([1] * (z.dim() - 2)),
+                              self.w.shape[1])
 
     def _y(self, z):
         return self.R * torch.exp(-(z @ self.B))
 
     def value(self, z):
-        return self.w @ z + torch.sum(self._y(z))
+        return (self._w(z) * z).sum(dim=-1) + self._y(z).sum(dim=-1)
 
     def grad(self, z):
-        return self.w - self.B @ self._y(z)
+        return self._w(z) - self._y(z) @ self.B.T
 
     def hess(self, z):
-        return (self.B * self._y(z)) @ self.B.T
+        return (self.B * self._y(z)[..., None, :]) @ self.B.T
+
+
+def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8,
+                value_band_eps: float | None = None, prior=None):
+    """Measured duality-gap certificate of a batch of KL iterates x (B, n)
+    (the reference's kl_dual_gap, models/dist_kl.py:128-186, per
+    instance).
+
+    ``H`` (k, n) shared inequality rows, ``u`` (B, k); ``A`` (p, n) the FULL
+    equality system (sum-to-one row included), ``b`` (B, p).  For any
+    lam >= 0 and any nu, g(z) = -(w.z + R.exp(-B'z)) (B = [H; A],
+    w = (u, b)) is a lower bound on the optimum, so f(x) - g(z) is an
+    honest certificate.  z starts from the least-squares fit of the
+    stationarity condition log x - log p + 1 + B'z = 0 (lam >= 0) and is
+    sharpened by ``polish_steps`` projected-Newton steps on -g.  Returns
+    ``(gap (B,), z (B, k + p))``.
+    """
+    dtype = x.dtype
+    n = x.shape[-1]
+    # a coordinate that underflowed to 0 would poison the fit with log 0
+    x = torch.clamp_min(x, 1e-30)
+    k = H.shape[0]
+    Bm = torch.cat([H, A], dim=0).to(dtype)
+    w = torch.cat([u, b], dim=1).to(dtype)
+    logp, R = _prior_terms(prior, n, dtype, x.device)
+    dim = Bm.shape[0]
+    c = -(1.0 + torch.log(x) - logp)
+    BBt = Bm @ Bm.T
+    ridge = (10 * torch.finfo(dtype).eps
+             * torch.abs(torch.diagonal(BBt)).mean())
+    BBt = BBt + ridge * torch.eye(dim, dtype=dtype, device=x.device)
+    z = _small_solve(BBt.expand(x.shape[0], dim, dim), c @ Bm.T)
+    mask = torch.arange(dim, device=x.device) < k
+    z = torch.where(mask, torch.clamp_min(z, 0.0), z)
+    neg_dual = _NegDualObjective(B=Bm, w=w, R=R)
+    z = _polish_dual(neg_dual, z, num_ineq=k, steps=polish_steps,
+                     value_band_eps=value_band_eps)
+    dual_val = -neg_dual.value(z)
+    primal_val = (x * (torch.log(x) - logp)).sum(dim=-1)
+    return primal_val - dual_val, z
+
+
+def _dense_solve(m, gf, dim):
+    """``_polish_f64``'s step by the reference's dense small solve, for a
+    dual dim past the kernels' unrolled systems (the reference's warm
+    polish solves every dim so); no sick flag."""
+    M = torch.stack([torch.stack([m[min(i, j), max(i, j)]
+                                  for j in range(dim)], dim=1)
+                     for i in range(dim)], dim=1)
+    dz = list(_small_solve(M, -torch.stack(gf, dim=1)).unbind(dim=1))
+    return dz, torch.zeros_like(gf[0], dtype=torch.bool)
 
 
 @dataclass
@@ -86,25 +185,27 @@ class KLCertificate:
     nu: torch.Tensor         # (B, p) polished equality duals
 
 
-def kl_certify(H, u, A, b, x, *, z0, polish_steps=6, prior=None,
+def kl_certify(H, u, A, b, x, *, z0=None, polish_steps=6, prior=None,
                compare_input=True):
-    """F64 finishing pass for a batch of KL iterates, warm branch (the
-    reference's kl_certify with ``z0`` given, models/dist_kl.py:278-411).
+    """F64 finishing pass for a batch of KL iterates (the reference's
+    kl_certify, models/dist_kl.py:278-411).
 
     ``H`` (k, n) shared inequality rows, ``u`` (B, k); ``A`` (p, n) the FULL
     equality system (the sum-to-one row first), ``b`` (B, p); ``x`` (B, n)
-    the iterates; ``z0`` (B, k + p) the f32 kernel's dual in the layout
-    [lam, nu].  Polishes z, recovers x_ref = R exp(-B'z) / sum and measures
-    its gap and residuals from one exp pass.  ``compare_input=False``
-    returns the refined point (the input only where the refinement is
-    non-finite, then with gap = +inf); ``True`` keeps whichever of
-    {refined, input} scores the smaller gap + violations.  The cold branch
-    (``z0=None``, kl_dual_gap) is ROADMAP M4.
+    the iterates.  Two dual starts:
+
+    * ``z0=None`` (cold): ``kl_dual_gap``'s least-squares fit at x and its
+      line-searched polish, for an iterate of unknown quality (a primal
+      route's x).  The input is always compared.
+    * ``z0`` (B, k + p), a fused kernel's dual in the layout [lam, nu]: the
+      active set is settled, so a lean warm Newton polish suffices.
+
+    Recovers x_ref = R exp(-B'z) / sum and measures its gap and residuals
+    from one exp pass.  ``compare_input=False`` (warm only) returns the
+    refined point (the input only where the refinement is non-finite, then
+    with gap = +inf); otherwise whichever of {refined, input} scores the
+    smaller gap + violations is kept.
     """
-    if z0 is None:
-        raise NotImplementedError(
-            "kl_certify: the cold branch (z0=None, kl_dual_gap) is not "
-            "ported yet, ROADMAP M4")
     f64 = torch.float64
     H, u, A, b, x = (t.to(f64) for t in (H, u, A, b, x))
     B, n = x.shape
@@ -114,16 +215,24 @@ def kl_certify(H, u, A, b, x, *, z0, polish_steps=6, prior=None,
     # and b[:, 0] as 1, with the per-instance layout of the fused kernels
     ctx = _Ctx(H[None].expand(B, k, n), u, A[None, 1:].expand(B, -1, n),
                b[:, 1:], logp)
-    z = _polish_f64(ctx, list(z0.to(f64).unbind(dim=1)), polish_steps,
-                    guard_sick=False)
+    gap_in = None
+    if z0 is None:
+        gap_in, zc = kl_dual_gap(H, u, A, b, x, polish_steps=polish_steps,
+                                 prior=prior)
+        z = list(zc.unbind(dim=1))
+    else:
+        solve = _dense_solve if ctx.dim > _FUSED_MAX_DIM else _solve_small
+        z = _polish_f64(ctx, list(z0.to(f64).unbind(dim=1)), polish_steps,
+                        guard_sick=False, solve=solve)
     # ONE exp pass serves the refined primal, both gap terms and the
     # residuals
     x_ref, gap_ref, viol_ref, eq_ref, dval = _certify_f64(ctx, z)
     score_ref = torch.clamp_min(gap_ref, 0.0) + viol_ref + eq_ref
     viol_in, eq_in = _residuals(ctx, x)
-    if compare_input:
-        xs = torch.clamp_min(x, 1e-30)
-        gap_in = (xs * (torch.log(xs) - logp)).sum(dim=1) + dval
+    if z0 is None or compare_input:
+        if gap_in is None:
+            xs = torch.clamp_min(x, 1e-30)
+            gap_in = (xs * (torch.log(xs) - logp)).sum(dim=1) + dval
         score_in = torch.clamp_min(gap_in, 0.0) + viol_in + eq_in
         # a non-finite input score must lose to any finite refinement
         better = torch.isfinite(score_ref) & (
@@ -153,6 +262,13 @@ def _stalled(x, gap, ineq, tol, tol_feas, eq=None):
     return ~torch.all(torch.isfinite(x), dim=-1) | ~ok
 
 
+def _instance(sol: Solution, i: int) -> Solution:
+    """One instance of a batched Solution."""
+    return Solution(**{f.name: (None if getattr(sol, f.name) is None
+                                else getattr(sol, f.name)[i])
+                       for f in dataclasses.fields(sol)})
+
+
 @dataclass
 class DistKL:
     """The KL-minimization problem (canonical form: empty blocks allowed).
@@ -171,15 +287,14 @@ class DistKL:
         """``prior`` (optional): a strictly positive (n,) weight vector
         (normalized here).  ``dtype`` defaults to the joint floating dtype
         of the tensors and arrays given (f64 when none carries one, as the
-        reference under jax_enable_x64); ``device`` to the first tensor's
-        device, else the CPU."""
+        reference under jax_enable_x64).  ``device`` defaults to the card
+        (``"cuda"``), where the kernels run; the data is moved there, and
+        without a CUDA device the call raises.  Pass ``device="cpu"`` for
+        the plain PyTorch versions."""
         given = [v for v in (H, u, A, r) if v is not None]
         if dtype is None:
             dtype = _joint_float_dtype(given)
-        if device is None:
-            device = next((v.device for v in given
-                           if isinstance(v, torch.Tensor)),
-                          torch.device("cpu"))
+        device = torch.device("cuda" if device is None else device)
         if (H is None) != (u is None) or (A is None) != (r is None):
             raise ValueError("H,u (and A,r) must be given together")
         opts = dict(dtype=dtype, device=device)
@@ -202,6 +317,31 @@ class DistKL:
             prior = prior / torch.sum(prior)
         return cls(H=H, u=u, A=A, r=r, n=n, prior=prior)
 
+    def _opts(self):
+        return dict(dtype=self.H.dtype, device=self.H.device)
+
+    def _bounds(self, u, r=None):
+        """Per-instance (u (B, k), r (B, mE)) on the model's device and
+        dtype; r defaults to the model's."""
+        u = torch.as_tensor(u).to(**self._opts())
+        if r is None:
+            r = self.r[None].expand(u.shape[0], self.A.shape[0])
+        return u, torch.as_tensor(r).to(**self._opts())
+
+    # ------------------------------------------------------------ primal side
+    @property
+    def objective(self) -> KLObjective:
+        lp = None if self.prior is None else torch.log(self.prior)
+        return KLObjective(n=self.n, log_prior=lp)
+
+    @property
+    def equalities(self):
+        """([1'; A], [1; r]): the probability constraint always first
+        (Dist_KL.scala:193-209, 296-297)."""
+        ones = torch.ones((1, self.n), **self._opts())
+        return (torch.cat([ones, self.A], dim=0),
+                torch.cat([ones[0, :1], self.r]))
+
     # -------------------------------------------------------------- dual side
     @property
     def num_ineq_dual(self) -> int:
@@ -217,59 +357,110 @@ class DistKL:
         return _prior_terms(self.prior, self.n, dtype or self.H.dtype,
                             self.H.device)[1]
 
-    def neg_dual_objective(self) -> _NegDualObjective:
-        ones = torch.ones((1, self.n), dtype=self.H.dtype,
-                          device=self.H.device)
+    def neg_dual_objective(self, u=None, r=None) -> _NegDualObjective:
+        """-L* of this problem, or of a batch with per-instance bounds
+        ``u`` (B, k) (and ``r`` (B, mE)) against its shared rows."""
+        ones = torch.ones((1, self.n), **self._opts())
         B = torch.cat([self.H, ones, self.A], dim=0)
-        w = torch.cat([self.u, ones[0, :1], self.r])
+        if u is None:
+            w = torch.cat([self.u, ones[0, :1], self.r])
+        else:
+            u, r = self._bounds(u, r)
+            w = torch.cat([u, ones[:, :1].expand(u.shape[0], 1), r], dim=1)
         return _NegDualObjective(B=B, w=w, R=self._R())
 
     def primal_optimum(self, z: torch.Tensor) -> torch.Tensor:
         """Q(z) = R exp(-B'z) (Dist_KL.scala:171), renormalized to sum 1."""
         q = self.neg_dual_objective()._y(z)
-        return q / torch.sum(q)
+        return q / torch.sum(q, dim=-1, keepdim=True)
 
-    def _ineq_res(self, x: torch.Tensor) -> torch.Tensor:
+    def _ineq_res(self, x: torch.Tensor, u=None) -> torch.Tensor:
         """Measured max inequality violation max(Hx - u, -x)_+ of an
-        iterate (B, n) or (n,)."""
+        iterate (B, n) or (n,); ``u`` defaults to the model's bounds."""
         viol = torch.clamp_min(torch.amax(-x, dim=-1), 0.0)
         if self.H.shape[0] > 0:
-            viol = torch.maximum(viol, torch.amax(
-                torch.clamp_min(x @ self.H.T - self.u, 0.0), dim=-1))
+            viol = torch.maximum(viol, torch.amax(torch.clamp_min(
+                x @ self.H.T - (self.u if u is None else u), 0.0), dim=-1))
         return viol
 
-    def _check_fused_dim(self):
-        if self.dual_dim > _FUSED_MAX_DIM:
-            raise NotImplementedError(
-                f"dual dim {self.dual_dim} > {_FUSED_MAX_DIM}: the fallback "
-                "to the dual_fast route is not ported yet, ROADMAP M4")
+    def _nan(self, B):
+        return torch.full((B,), math.nan, **self._opts())
 
-    # ----------------------------------------------------------------- solve
+    # ---------------------------------------------------------- dual routes
+    def _dual_newton_batch(self, u, pars, steps=30, r=None) -> Solution:
+        """solve_dual_newton with per-instance bounds u (B, k) (and r
+        (B, mE); default the model's)."""
+        d = self.neg_dual_objective(u, r)
+        k, B = self.num_ineq_dual, u.shape[0]
+        z0 = torch.full((B, self.dual_dim), pars.dual_start, **self._opts())
+        z = _polish_dual(d, z0, num_ineq=k, steps=steps)
+        y = d._y(z)
+        x = y / torch.sum(y, dim=-1, keepdim=True)
+        # f(x) - g(z), measured
+        gap = self.objective.value(x) + d.value(z)
+        ineq = self._ineq_res(x, u)
+        tol = math.sqrt(torch.finfo(x.dtype).eps)
+        nan = self._nan(B)
+        return Solution(
+            x=x, lam=z[:, :k], nu=z[:, k:], newton_decrement=nan,
+            duality_gap=gap, eq_gap=torch.abs(torch.sum(x, dim=-1) - 1.0),
+            norm_grad=torch.linalg.vector_norm(d.grad(z), dim=-1),
+            norm_dual_residual=nan,
+            iters=torch.full((B,), steps, device=x.device),
+            maxed_out=torch.zeros(B, dtype=torch.bool, device=x.device),
+            stalled=_stalled(x, gap, ineq, tol, tol), ineq_res=ineq)
+
+    def solve_dual_newton(self, pars: SolverParams | None = None,
+                          steps: int = 30) -> Solution:
+        """Direct active-set projected-Newton solve of the closed-form dual
+        (method="dual_fast"): ``steps`` steps of ``duality._polish_dual``
+        from z = dual_start, then x = Q(z) and the measured gap f(x) -
+        g(z).  The route past dual dim 16, where K1 does not reach."""
+        pars = pars or SolverParams()
+        return _instance(self._dual_newton_batch(self.u[None], pars, steps),
+                         0)
+
+    def _dual_fused_batch(self, u, pars, steps=16, r=None) -> Solution:
+        """K1 on per-instance bounds u (B, k) (and r (B, mE); default the
+        model's); dual_fast past dim 16."""
+        k, m_eq = self.H.shape[0], self.A.shape[0]
+        if k + m_eq < 1 or k + 1 + m_eq > _FUSED_MAX_DIM:
+            return self._dual_newton_batch(u, pars, r=r)
+        B = u.shape[0]
+        _, rb = self._bounds(u, r)
+        lp = None if self.prior is None else torch.log(self.prior)
+        x, gap, z = kl_dual_fused(
+            self.H[None].expand(B, k, self.n), u,
+            self.A[None].expand(B, m_eq, self.n) if m_eq > 0 else None,
+            rb if m_eq > 0 else None,
+            log_prior=lp, n_steps=steps, z0=float(pars.dual_start))
+        tol = math.sqrt(torch.finfo(x.dtype).eps)
+        ineq = self._ineq_res(x, u)
+        nan = self._nan(B)
+        return Solution(
+            x=x, lam=z[:, :k], nu=z[:, k:], newton_decrement=nan,
+            duality_gap=gap, eq_gap=torch.abs(torch.sum(x, dim=-1) - 1.0),
+            norm_grad=nan, norm_dual_residual=nan,
+            iters=torch.full((B,), steps, device=x.device),
+            maxed_out=torch.zeros(B, dtype=torch.bool, device=x.device),
+            stalled=_stalled(x, gap, ineq, tol, tol), ineq_res=ineq)
+
     def solve_dual_fused(self, pars: SolverParams | None = None,
                          steps: int = 16) -> Solution:
         """Whole dual solve in one kernel (method="dual_fused", K1) for
-        dual dim k + 1 + mE <= 16."""
+        dual dim k + 1 + mE <= 16; larger shapes fall back to
+        ``solve_dual_newton``, as in the reference."""
         pars = pars or SolverParams()
-        self._check_fused_dim()
-        k, m_eq = self.H.shape[0], self.A.shape[0]
-        lp = None if self.prior is None else torch.log(self.prior)
-        x, gap, z = kl_dual_fused(
-            self.H[None], self.u[None],
-            self.A[None] if m_eq > 0 else None,
-            self.r[None] if m_eq > 0 else None,
-            log_prior=lp, n_steps=steps, z0=float(pars.dual_start))
-        x, gap, z = x[0], gap[0], z[0]
-        dev = x.device
-        nan = torch.full((), math.nan, dtype=x.dtype, device=dev)
-        tol = math.sqrt(torch.finfo(x.dtype).eps)
-        ineq = self._ineq_res(x)
-        return Solution(
-            x=x, lam=z[:k], nu=z[k:], newton_decrement=nan,
-            duality_gap=gap, eq_gap=torch.abs(torch.sum(x) - 1.0),
-            norm_grad=nan, norm_dual_residual=nan,
-            iters=torch.tensor(steps, device=dev),
-            maxed_out=torch.tensor(False, device=dev),
-            stalled=_stalled(x, gap, ineq, tol, tol), ineq_res=ineq)
+        return _instance(self._dual_fused_batch(self.u[None], pars, steps),
+                         0)
+
+    def _certified_batch(self, u, pars, steps=16, polish_steps=2):
+        """K1 (or dual_fast) then the f64 warm finish, per instance."""
+        sol = self._dual_fused_batch(u, pars, steps)
+        _, rb = self._bounds(u)
+        cert = self._certify(u, rb, sol.x, torch.cat([sol.lam, sol.nu], 1),
+                             polish_steps)
+        return self._cert_solution(cert, pars, steps + polish_steps)
 
     def solve_certified(self, pars: SolverParams | None = None,
                         steps: int = 16, polish_steps: int = 2) -> Solution:
@@ -277,33 +468,25 @@ class DistKL:
         "dual_fused_cert"), certified to gap <= pars.tol with measured
         residuals <= pars.tol_feas."""
         pars = pars or SolverParams()
-        sol = self.solve_dual_fused(pars, steps=steps)
-        cert = self._certify(self.u[None], self.r[None], sol.x[None],
-                             torch.cat([sol.lam, sol.nu])[None], polish_steps)
-        return self._cert_solution(cert, pars, steps + polish_steps, batch=0)
+        return _instance(self._certified_batch(self.u[None], pars, steps,
+                                               polish_steps), 0)
 
     def _certify(self, u, r, xs, zs, polish_steps):
-        ones = torch.ones((1, self.n), dtype=self.H.dtype,
-                          device=self.H.device)
-        eq_A = torch.cat([ones, self.A], dim=0)
+        eq_A, _ = self.equalities
         b = torch.cat([u.new_ones((u.shape[0], 1)), r.to(u.dtype)], dim=1)
         return kl_certify(self.H, u, eq_A, b, xs, z0=zs,
                           polish_steps=polish_steps, prior=self.prior,
                           compare_input=False)
 
-    def _cert_solution(self, cert, pars, iters, batch=None):
-        """Solution from batched certificate leaves; ``batch=0`` returns
-        the single instance."""
+    def _cert_solution(self, cert, pars, iters):
+        """Batched Solution from certificate leaves."""
         x, gap, ineq, eq = cert.x, cert.gap, cert.ineq_res, cert.eq_res
-        lam, nu = cert.lam, cert.nu
-        if batch is not None:
-            x, gap, ineq, eq, lam, nu = (t[batch] for t in
-                                         (x, gap, ineq, eq, lam, nu))
         shape, dev = gap.shape, x.device
         nan = torch.full(shape, math.nan, dtype=torch.float64, device=dev)
         return Solution(
-            x=x, lam=lam, nu=nu, newton_decrement=nan, duality_gap=gap,
-            eq_gap=eq, norm_grad=nan, norm_dual_residual=nan,
+            x=x, lam=cert.lam, nu=cert.nu, newton_decrement=nan,
+            duality_gap=gap, eq_gap=eq, norm_grad=nan,
+            norm_dual_residual=nan,
             iters=torch.full(shape, iters, device=dev),
             maxed_out=torch.zeros(shape, dtype=torch.bool, device=dev),
             stalled=_stalled(x, gap, ineq, pars.tol, pars.tol_feas, eq=eq),
@@ -320,26 +503,20 @@ class DistKL:
         in one kernel; f32 problem data only).  ``fused_cert=False`` runs
         K1 and then the f64 ``kl_certify`` warm pass.  ``None`` (auto)
         takes K2 wherever the dual dim fits the kernels and the data is
-        f32, and the K1 + f64 route for f64 data.  On CPU tensors both
-        kernels run their plain versions.  Returns a batched Solution with
+        f32, and the K1 + f64 route for f64 data.  Past dual dim 16 the
+        K1 solve is replaced by ``solve_dual_newton``'s (at least 30
+        steps, cold), as in the reference.  On CPU tensors both kernels
+        run their plain versions.  Returns a batched Solution with
         measured f64 certificate leaves.
         """
         pars = pars or SolverParams()
         k, m_eq = self.H.shape[0], self.A.shape[0]
         dtype = self.H.dtype
-        u = torch.as_tensor(u).to(dtype=dtype, device=self.H.device)
+        u, rb = self._bounds(u, r)
         B = u.shape[0]
-        Hb = self.H[None].expand(B, k, self.n)
-        if m_eq > 0:
-            Ab = self.A[None].expand(B, m_eq, self.n)
-            rb = (self.r[None].expand(B, m_eq) if r is None else
-                  torch.as_tensor(r).to(dtype=dtype, device=self.H.device))
-        else:
-            Ab = rb = None
         kernel_fits = k + m_eq >= 1 and k + 1 + m_eq <= _FUSED_MAX_DIM
         if fused_cert is None:
             fused_cert = kernel_fits and dtype == torch.float32
-        iters = steps + polish_steps
         if fused_cert:
             if not kernel_fits:
                 raise ValueError(
@@ -354,27 +531,136 @@ class DistKL:
             lp = (None if self.prior is None
                   else torch.log(self.prior.to(torch.float64)))
             x, z, gap, ineq, eq = kl_dual_fused_cert(
-                Hb, u, Ab, rb, log_prior=lp, n_steps=steps,
+                self.H[None].expand(B, k, self.n), u,
+                self.A[None].expand(B, m_eq, self.n) if m_eq > 0 else None,
+                rb if m_eq > 0 else None, log_prior=lp, n_steps=steps,
                 polish_steps=polish_steps, z0=float(pars.dual_start))
             cert = KLCertificate(x=x, gap=gap, ineq_res=ineq, eq_res=eq,
                                  lam=z[:, :k], nu=z[:, k:])
-            return self._cert_solution(cert, pars, iters)
-        self._check_fused_dim()
-        lp = None if self.prior is None else torch.log(self.prior)
-        xs, _, zs = kl_dual_fused(Hb, u, Ab, rb, log_prior=lp,
-                                  n_steps=steps, z0=float(pars.dual_start))
-        rb_ = rb if m_eq > 0 else u.new_zeros((B, 0))
-        cert = self._certify(u, rb_, xs, zs, polish_steps)
-        return self._cert_solution(cert, pars, iters)
+            return self._cert_solution(cert, pars, steps + polish_steps)
+        if kernel_fits:
+            sol = self._dual_fused_batch(u, pars, steps, r=rb)
+        else:
+            # the fallback starts cold, so it gets at least its own tuned
+            # schedule even when the caller passes the kernel-sized one
+            steps = max(steps, 30)
+            sol = self._dual_newton_batch(u, pars, steps, r=rb)
+        cert = self._certify(u, rb, sol.x, torch.cat([sol.lam, sol.nu], 1),
+                             polish_steps)
+        return self._cert_solution(cert, pars, steps + polish_steps)
+
+    # -------------------------------------------------------- primal routes
+    def _fused_batch(self, u, x0, pars) -> Solution:
+        """K3 on per-instance bounds u (B, k) from x0 (B, n), then the
+        measured certificate kl_dual_gap (pallas route, dist_kl.py:907-969
+        of the reference)."""
+        k, n, B = self.H.shape[0], self.n, u.shape[0]
+        ones = torch.ones((1, 1, n), **self._opts())
+        x = kl_barrier_fused(
+            self.H[None].expand(B, k, n), u, ones.expand(B, 1, n),
+            ones[0, :, :1].expand(B, 1), x0, mu=float(pars.mu),
+            tol=float(pars.tol), n_inner=self._fused_n_inner(pars))
+        return self._fused_solution(u, x, pars)
+
+    @staticmethod
+    def _fused_n_inner(pars) -> int:
+        # the fixed schedule's n_inner: pars.max_iter (default 1000) caps
+        # the iterative solvers' inner loops, not a step count here
+        return min(int(pars.max_iter), 8)
+
+    def _fused_solution(self, u, x, pars) -> Solution:
+        """The fused route's Solution for K3's x (B, n) on bounds u (B, k):
+        the measured gap, its duals and the stall rule."""
+        k, n, B = self.H.shape[0], self.n, u.shape[0]
+        ones = torch.ones((1, 1, n), **self._opts())
+        n_inner = self._fused_n_inner(pars)
+        m = k + n
+        n_outer = fused_n_outer(m, mu=float(pars.mu), tol=float(pars.tol))
+        t_final = fused_final_t(m, mu=float(pars.mu), tol=float(pars.tol),
+                                n_outer=n_outer)
+        # the MEASURED gap at the returned iterate, not the central-path m/t
+        gap, z = kl_dual_gap(self.H, u, ones[0], ones[0, :, :1].expand(B, 1),
+                             x, prior=self.prior)
+        eps = torch.finfo(x.dtype).eps
+        # |gap| and the violation: an iterate the kernel could not move has
+        # f(x0) < p*, a negative gap a one-sided test calls healthy
+        ineq = self._ineq_res(x, u)
+        nan = self._nan(B)
+        return Solution(
+            x=x, lam=torch.cat([z[:, :k], 1.0 / (t_final * x)], dim=1),
+            nu=z[:, k:], newton_decrement=nan, duality_gap=gap,
+            eq_gap=torch.abs(torch.sum(x, dim=-1) - 1.0), norm_grad=nan,
+            norm_dual_residual=nan,
+            iters=torch.full((B,), n_outer * n_inner, device=x.device),
+            maxed_out=torch.zeros(B, dtype=torch.bool, device=x.device),
+            stalled=_stalled(x, gap, ineq, math.sqrt(eps), math.sqrt(eps)),
+            ineq_res=ineq)
+
+    def solve_jittable_batch(self, u, feasible_points,
+                             method: str = "fused",
+                             pars: SolverParams | None = None) -> Solution:
+        """Batched solve with per-instance bounds ``u`` (B, k) against this
+        problem's shared rows, from strictly feasible ``feasible_points``
+        (B, n) (ignored by the dual methods): the written-out batch axis of
+        the reference's ``vmap(lambda u_i, x0_i: DistKL.create(n, H, u_i)
+        .solve_jittable(x0_i, method, pars))``.
+
+        method: "fused" (K3, then the measured gap; falls back to
+        "BR_fast" for extra equality rows, a prior, or k not in {1, 2}),
+        "BR_fast" (the structured barrier), "dual_fast", "dual_fused" (K1)
+        or "dual_fused_cert" (K1 + the f64 finish).  Returns a batched
+        Solution.
+        """
+        pars = pars or SolverParams()
+        u, _ = self._bounds(u)
+        if method in _NOT_PORTED:
+            raise NotImplementedError(
+                f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
+        if method == "dual_fast":
+            return self._dual_newton_batch(u, pars)
+        if method == "dual_fused":
+            return self._dual_fused_batch(u, pars)
+        if method == "dual_fused_cert":
+            return self._certified_batch(u, pars)
+        if method not in ("fused", "BR_fast"):
+            raise ValueError(f"unknown method: {method!r}")
+        if feasible_points is None:
+            raise ValueError(f"method={method!r} needs strictly feasible "
+                             "points (B, n)")
+        x0 = torch.as_tensor(feasible_points).to(**self._opts())
+        k = self.H.shape[0]
+        if method == "fused":
+            # K3's closed-form algebra covers 1 <= k <= 2 rows, the
+            # sum-to-one equality and the uniform prior; any other shape
+            # falls back to the structured path
+            if (self.A.shape[0] == 0 and 1 <= k <= 2
+                    and self.prior is None):
+                return self._fused_batch(u, x0, pars)
+        eq_A, eq_b = self.equalities
+        b = eq_b[None].expand(u.shape[0], -1)
+        return barrier_solve_structured(self.objective, self.H, u, eq_A, b,
+                                        x0, pars)
+
+    def solve_jittable(self, feasible_point, method: str = "BR",
+                       pars: SolverParams | None = None) -> Solution:
+        """Primal solve from a given strictly feasible point, or a dual
+        route: ``solve_jittable_batch`` with one instance."""
+        fp = None if feasible_point is None else \
+            torch.as_tensor(feasible_point)[None]
+        return _instance(self.solve_jittable_batch(self.u[None], fp, method,
+                                                   pars), 0)
 
     def solve(self, method: str = "dual",
-              pars: SolverParams | None = None) -> Solution:
-        """Solve the problem.  Ported: "dual_fused" (whole dual solve in
-        one kernel) and "dual_fused_cert" (+ the f64 finishing pass,
-        certified to gap < 1e-8).  The reference's other methods,
-        including its default "dual", raise NotImplementedError naming
-        their ROADMAP item."""
+              pars: SolverParams | None = None,
+              feasible_point=None) -> Solution:
+        """Solve the problem.  Ported: "dual_fast", "dual_fused",
+        "dual_fused_cert", and "fused" / "BR_fast" from a given
+        ``feasible_point`` (the reference runs phase-I when none is given:
+        ROADMAP M7).  "dual" (the reference's default), "dual_BR",
+        "dual_PD", "BR" and "PD" raise NotImplementedError naming M7."""
         pars = pars or SolverParams()
+        if method == "dual_fast":
+            return self.solve_dual_newton(pars)
         if method == "dual_fused":
             return self.solve_dual_fused(pars)
         if method == "dual_fused_cert":
@@ -382,7 +668,13 @@ class DistKL:
         if method in _NOT_PORTED:
             raise NotImplementedError(
                 f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
-        raise ValueError(f"unknown method: {method!r}")
+        if method not in ("fused", "BR_fast"):
+            raise ValueError(f"unknown method: {method!r}")
+        if feasible_point is None:
+            raise NotImplementedError(
+                f"method={method!r} without a feasible_point needs phase-I "
+                "(find_feasible_point), not ported yet: ROADMAP M7")
+        return self.solve_jittable(feasible_point, method=method, pars=pars)
 
 
 def _joint_float_dtype(values):

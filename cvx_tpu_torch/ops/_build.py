@@ -7,6 +7,7 @@ its source and flags so that an edited source rebuilds and an unchanged one
 loads the cached file.  The sources have a plain C interface (pointers,
 strides, sizes, the stream), so the build needs neither PyTorch's headers
 nor a compiler for them.  A failed build raises with nvcc's output.
+``build_all`` starts one nvcc per source at once and waits for all of them.
 
 Flags: ``sm_90a`` (Hopper), no fast math (the kernels test isfinite and
 inf, and need IEEE exp/log/div/sqrt), and ``--fmad=false`` so that each
@@ -26,8 +27,11 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+SOURCES = ("kl_dual.cu", "kl_barrier.cu", "chol.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
+_P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_double)
 
 
 def _nvcc() -> str:
@@ -38,42 +42,110 @@ def _nvcc() -> str:
                        "CUDA kernels are built from source at first use")
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into a shared library; returns its path."""
+def _target(source: str) -> tuple[Path, Path]:
     src = _CSRC / source
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}_{digest}.so"
-    if out.exists():
-        return out
+    return src, BUILD_DIR / f"{src.stem}_{digest}.so"
+
+
+def _start(src: Path, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, tmp
+
+
+def _finish(src: Path, out: Path, proc, tmp: Path) -> None:
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):"
-                           f"\n{proc.stdout}\n{proc.stderr}")
+                           f"\n{stdout}\n{stderr}")
     os.replace(tmp, out)     # atomic: concurrent builders race harmlessly
-    return out
+
+
+def build_all(sources=SOURCES) -> list[Path]:
+    """Compile every source not built yet, one nvcc each, all started
+    together; returns the libraries' paths in the order given."""
+    targets = [_target(s) for s in sources]
+    running = [(src, out, *_start(src, out)) for src, out in targets
+               if not out.exists()]
+    try:
+        for src, out, proc, tmp in running:
+            _finish(src, out, proc, tmp)
+    finally:
+        for _, _, proc, _ in running:   # a failed build stops the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [out for _, out in targets]
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into a shared library; returns its path."""
+    return build_all((source,))[0]
+
+
+def _load(source: str, signatures: dict, error_fn: str) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build(source)))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = _I32
+    err = getattr(lib, error_fn)
+    err.argtypes = [_I32]
+    err.restype = ctypes.c_char_p
+    lib.error_string = err
+    _libs[source] = lib
+    return lib
 
 
 def load_kl_dual() -> ctypes.CDLL:
     """The K1/K2 library (``csrc/kl_dual.cu``), built on first call."""
-    lib = _libs.get("kl_dual")
-    if lib is not None:
-        return lib
-    lib = ctypes.CDLL(str(build("kl_dual.cu")))
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    rows = [p] * 5 + [i64] * 8          # Hs, u, A, r, log_prior; strides
-    for fn in ("kl_dual_fused_f32", "kl_dual_fused_f64"):
-        f = getattr(lib, fn)
-        f.argtypes = rows + [p] * 3 + [i32] * 5 + [ctypes.c_double, i32, p]
-        f.restype = i32
-    f = lib.kl_dual_fused_cert_f32
-    f.argtypes = rows + [p] * 5 + [i32] * 5 + [ctypes.c_double, i32, i32, p]
-    f.restype = i32
-    lib.kl_dual_error_string.argtypes = [i32]
-    lib.kl_dual_error_string.restype = ctypes.c_char_p
-    _libs["kl_dual"] = lib
-    return lib
+    rows = [_P] * 5 + [_I64] * 8          # Hs, u, A, r, log_prior; strides
+    k1 = rows + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
+    k2 = rows + [_P] * 5 + [_I32] * 5 + [_F64, _I32, _I32, _P]
+    return _load("kl_dual.cu", {"kl_dual_fused_f32": k1,
+                                "kl_dual_fused_f64": k1,
+                                "kl_dual_fused_cert_f32": k2},
+                 "kl_dual_error_string")
+
+
+def load_kl_barrier() -> ctypes.CDLL:
+    """The K3 library (``csrc/kl_barrier.cu``), built on first call."""
+    sig = ([_P] * 5 + [_I64] * 7 + [_P] * 4 + [_I32] * 6 + [_P]
+           + [_F64] * 2 + [_P])
+    return _load("kl_barrier.cu", {"kl_barrier_fused_f32": sig,
+                                   "kl_barrier_fused_f64": sig},
+                 "kl_barrier_error_string")
+
+
+def load_chol() -> ctypes.CDLL:
+    """The K4 library (``csrc/chol.cu``), built on first call."""
+    sig = [_P, _I64, _I64, _P, _I32, _I32, _P]
+    return _load("chol.cu", {"chol_batched_f32": sig,
+                             "chol_batched_f64": sig},
+                 "chol_error_string")
+
+
+def launch(lib: ctypes.CDLL, fn: str, name: str, device, *args) -> None:
+    """Call ``lib.fn(*args, stream)`` on ``device``'s current stream and
+    raise with CUDA's message if the launch is refused."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,273 @@
+"""The batched primal log-barrier KL solve: plain PyTorch version and CUDA
+kernel.
+
+Counterpart of ``cvx_tpu/ops/pallas_kl.py``.  One kernel, in
+``csrc/kl_barrier.cu`` and bound through ``_build.py``:
+
+* ``kl_barrier_fused`` (K3) replaces the Pallas kernel ``_kl_fused_kernel``
+  (``pallas_call`` at pallas_kl.py:295): the whole primal solve of
+
+      min  x . log(n x)   s.t.  Hs x <= u,  x > 0,  A x = b
+
+  for 1 <= k <= 2 scenario rows and exactly one equality row, on a fixed
+  continuation t = t0 mu^stage of n_outer stages x n_inner Newton steps.
+  Each step solves the barrier Newton system by Woodbury (the k x k inverse
+  in closed form) plus a p = 1 Schur complement, bounds the step by the
+  closed-form feasible range, and takes the longest of n_ls Armijo
+  candidates beta^i below it.
+
+``kl_barrier_fused_plain`` is the same algebra as batched tensor code (each
+per-instance scalar a (B, 1) tensor, each row a (B, n) one).  The CPU tests
+hold it against the JAX reference; ``chip_smoke.py`` holds the kernel
+against it on the card.  The wrapper takes the plain version only for CPU
+tensors: a CUDA tensor runs the kernel or raises.
+
+The TPU kernel padded n to a lane multiple and B to its tile with inert
+filler; both were Mosaic layout needs.  Here nothing is padded: the padded
+coordinates only ever added zeros to the row sums.  The schedule's
+per-stage t, the candidates' beta^i and log n are computed once, in
+PyTorch, and handed to the kernel as device tensors (nothing is read back
+before the launch), so both versions use the same values.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .cholesky import default_delta
+
+# the kernel keeps per-coordinate state in registers up to this n and in a
+# (B, 6, n) scratch tensor above it (kRegMaxN in csrc/kl_barrier.cu)
+_REG_MAX_N = 256
+
+
+def fused_n_outer(m_total: int, *, t0: float = 1.0, mu: float = 30.0,
+                  tol: float = 1e-8) -> int:
+    """Number of continuation stages so the terminal central-path bound
+    m/t = m_total / (t0 * mu^(n_outer-1)) is below ``tol``."""
+    return max(2, math.ceil(
+        math.log(m_total / (tol * t0)) / math.log(mu)) + 1)
+
+
+def fused_final_t(m_total: int, *, t0: float = 1.0, mu: float = 30.0,
+                  tol: float = 1e-8, n_outer: int | None = None) -> float:
+    """Terminal barrier parameter of the fixed fused schedule."""
+    if n_outer is None:
+        n_outer = fused_n_outer(m_total, t0=t0, mu=mu, tol=tol)
+    return t0 * mu ** (n_outer - 1)
+
+
+def _check_args(Hs, u, A, b, x0, *, t0, mu, tol, n_outer, n_inner, n_ls):
+    """The reference's shape errors, plus the shapes the batch must agree
+    on; returns n_outer."""
+    if Hs.dim() != 3 or A.dim() != 3:
+        raise ValueError(f"kl_barrier_fused: Hs and A must be (B, k, n) and "
+                         f"(B, p, n), got {tuple(Hs.shape)} and "
+                         f"{tuple(A.shape)}")
+    B, k, n = Hs.shape
+    p = A.shape[1]
+    if n_outer is None:
+        n_outer = fused_n_outer(k + n, t0=t0, mu=mu, tol=tol)
+    if not (1 <= k <= 2) or p != 1:
+        raise ValueError(
+            f"fused kernel supports 1 <= k <= 2 scenario rows (got k={k}) "
+            f"and exactly p = 1 equality row (got p={p}); use "
+            "DistKL.solve(method='fused') which falls back to the "
+            "structured BR_fast path for other shapes")
+    if (tuple(u.shape) != (B, k) or tuple(A.shape) != (B, 1, n)
+            or tuple(b.shape) != (B, 1) or tuple(x0.shape) != (B, n)):
+        raise ValueError(f"kl_barrier_fused: shapes Hs {tuple(Hs.shape)}, u "
+                         f"{tuple(u.shape)}, A {tuple(A.shape)}, b "
+                         f"{tuple(b.shape)}, x0 {tuple(x0.shape)} do not "
+                         "agree")
+    if n < 1 or n_outer < 0 or n_inner < 0 or n_ls < 1:
+        raise ValueError("kl_barrier_fused: need n >= 1, n_outer >= 0, "
+                         "n_inner >= 0 and n_ls >= 1")
+    return n_outer
+
+
+def _schedule(n, dtype, device, *, t0, mu, n_outer, beta, n_ls):
+    """(t per stage (n_outer,), the candidates' beta^expo (n_ls,), log n),
+    in the working dtype as the reference computes them
+    (pallas_kl.py:104-117)."""
+    def c(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    stage = torch.arange(n_outer, device=device).to(dtype)
+    ts = t0 * torch.exp(stage * torch.log(c(float(mu))))
+    kk = torch.arange(n_ls, device=device)
+    expo = torch.where(kk < 32, kk, 32 + 3 * (kk - 32)).to(dtype)
+    ls_ts = torch.pow(c(float(beta)), expo)
+    return ts, ls_ts, torch.log(c(float(n)))
+
+
+def kl_barrier_fused_plain(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
+                           n_outer=None, n_inner=8, alpha=0.04, beta=0.8,
+                           n_ls=12):
+    """Plain PyTorch version of K3 (any device, f32 or f64); returns x
+    (B, n).  ``Hs`` (B, k, n), ``u`` (B, k), ``A`` (B, 1, n), ``b`` (B, 1),
+    ``x0`` (B, n) strictly feasible."""
+    n_outer = _check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
+                          n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
+    B, k, n = Hs.shape
+    dtype = Hs.dtype
+    ts, ls_ts, lognv = _schedule(n, dtype, Hs.device, t0=t0, mu=mu,
+                                 n_outer=n_outer, beta=beta, n_ls=n_ls)
+    delta = default_delta(dtype)
+    eps_mach = torch.finfo(dtype).eps
+    rows = [Hs[:, j, :] for j in range(k)]          # k x (B, n)
+    ubs = [u[:, j:j + 1] for j in range(k)]         # k x (B, 1)
+    a0 = A[:, 0, :]
+    bb = b[:, :1]
+
+    def rdot(a, c):
+        return (a * c).sum(dim=1, keepdim=True)
+
+    x = x0.clone()
+    for i in range(n_outer * n_inner):
+        t = ts[i // n_inner]
+        ds = [ubs[j] - rdot(rows[j], x) for j in range(k)]
+        inv_ds = [1.0 / dj for dj in ds]
+        logx = torch.log(x)
+        g = t * (1.0 + lognv + logx) - 1.0 / x
+        for j in range(k):
+            g = g + rows[j] * inv_ds[j]
+        h = t / x + 1.0 / (x * x)
+        inv_h = 1.0 / h
+
+        # Woodbury (k x k), written out:
+        # M_jl = d_j^2 [j==l] + sum_i rows_j rows_l / h
+        uds = [rows[j] * inv_h for j in range(k)]
+        if k == 2:
+            m00 = rdot(uds[0], rows[0]) + ds[0] * ds[0]
+            m11 = rdot(uds[1], rows[1]) + ds[1] * ds[1]
+            m01 = rdot(uds[0], rows[1])
+            sc = 0.5 * (torch.abs(m00) + torch.abs(m11))
+            m00 = m00 + delta * sc
+            m11 = m11 + delta * sc
+            det = m00 * m11 - m01 * m01
+            i00, i01, i11 = m11 / det, -m01 / det, m00 / det
+
+            def solve_h(r):
+                # H^-1 r = D^-1 r - D^-1 Hs^T M^-1 Hs D^-1 r
+                s0 = rdot(uds[0], r)
+                s1 = rdot(uds[1], r)
+                y0 = i00 * s0 + i01 * s1
+                y1 = i01 * s0 + i11 * s1
+                return r * inv_h - uds[0] * y0 - uds[1] * y1
+        else:
+            m00 = rdot(uds[0], rows[0]) + ds[0] * ds[0]
+            m00 = m00 * (1.0 + delta)
+            i00 = 1.0 / m00
+
+            def solve_h(r):
+                y0 = i00 * rdot(uds[0], r)
+                return r * inv_h - uds[0] * y0
+
+        hig = solve_h(g)
+        hia = solve_h(a0)
+        # no shift on S: a consistent Schur solve preserves the equality
+        # exactly; a shift injects drift ~ delta * |A H^-1 g|
+        S = rdot(a0, hia)
+        rhs_eq = bb - rdot(a0, x)
+        wv = -(rhs_eq + rdot(a0, hig)) / S
+        dx = -(hig + hia * wv)
+
+        q = rdot(dx, g)
+        udxs = [rdot(rows[j], dx) for j in range(k)]
+        # closed-form largest feasible step (constraints linear in s)
+        sx = torch.where(dx < 0, -x / dx, math.inf).amin(dim=1, keepdim=True)
+        s_max = torch.clamp(sx, max=1.0 / 0.99)
+        for j in range(k):
+            sj = torch.where(udxs[j] > 0, ds[j] / udxs[j], math.inf)
+            s_max = torch.minimum(s_max, sj)
+        s_max = 0.99 * s_max
+        f0 = t * rdot(x, lognv + logx) - logx.sum(dim=1, keepdim=True)
+        for j in range(k):
+            f0 = f0 - torch.log(ds[j])
+
+        # the n_ls candidates below s_max: (B, n_ls, n)
+        ss = s_max * ls_ts[None, :]
+        xs = x[:, None, :] + ss[:, :, None] * dx[:, None, :]
+        ok = torch.all(xs > 0, dim=2)
+        log_xs = torch.log(torch.where(xs > 0, xs, 1.0))
+        fs = (t * (xs * (lognv + log_xs)).sum(dim=2)
+              - log_xs.sum(dim=2))
+        for j in range(k):
+            dsj = ds[j] - ss * udxs[j]
+            ok = ok & (dsj > 0)
+            fs = fs - torch.log(torch.where(dsj > 0, dsj, 1.0))
+        armijo = fs <= f0 + alpha * ss * q
+        s_best = torch.where(ok & armijo, ss, 0.0).amax(dim=1, keepdim=True)
+        s_best = torch.where(q < -eps_mach, s_best, 0.0)
+        # no-step guard: dx may be non-finite once an instance's margins
+        # drop below the dtype's resolution; 0 * NaN = NaN
+        x = torch.where(s_best > 0, x + s_best * dx, x)
+    return x
+
+
+def _kernel_strides(Hs, u, A, b, x0):
+    """Checks the kernel's dtype, device and stride contract; returns the
+    element strides it takes."""
+    dev, dtype = Hs.device, Hs.dtype
+    for t in (u, A, b, x0):
+        if t.device != dev:
+            raise ValueError(f"kl_barrier_fused: all tensors must be on "
+                             f"{dev}, got one on {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"kl_barrier_fused: all tensors must be "
+                             f"{dtype}, got {t.dtype}")
+    if Hs.shape[2] > 1 and any(t.stride(-1) != 1 for t in (Hs, A, x0)):
+        raise ValueError("kl_barrier_fused: the lane axis of Hs, A and x0 "
+                         "must be contiguous (stride 1); call .contiguous()")
+    return (Hs.stride(0), Hs.stride(1), u.stride(0), u.stride(1),
+            A.stride(0), b.stride(0), x0.stride(0))
+
+
+def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
+                     n_outer=None, n_inner=8, alpha=0.04, beta=0.8, n_ls=12):
+    """K3: solve a batch of primal KL problems; returns x (B, n) as
+    ``kl_barrier_fused_plain`` does.
+
+    CPU tensors run the plain version.  CUDA tensors (f32 or f64, all of
+    one dtype; any batch stride, so shared rows may be stride-0 expands)
+    run the CUDA kernel, one warp per instance, on the current stream;
+    anything it does not take raises.  ``kl_barrier_fused.launches``
+    counts kernel launches.
+    """
+    n_outer = _check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
+                          n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
+    kw = dict(t0=t0, mu=mu, n_outer=n_outer, n_inner=n_inner, alpha=alpha,
+              beta=beta, n_ls=n_ls)
+    if Hs.device.type == "cpu":
+        return kl_barrier_fused_plain(Hs, u, A, b, x0, **kw)
+    if Hs.device.type != "cuda" or Hs.dtype not in (torch.float32,
+                                                    torch.float64):
+        raise ValueError("kl_barrier_fused: takes CPU tensors or f32/f64 "
+                         f"CUDA tensors, got {Hs.dtype} on {Hs.device}")
+    strides = _kernel_strides(Hs, u, A, b, x0)
+    B, k, n = Hs.shape
+    dtype, dev = Hs.dtype, Hs.device
+    ts, ls_ts, lognv = _schedule(n, dtype, dev, t0=t0, mu=mu,
+                                 n_outer=n_outer, beta=beta, n_ls=n_ls)
+    x = torch.empty((B, n), dtype=dtype, device=dev)
+    if B == 0:
+        return x
+    scratch = (torch.empty((B, 6, n), dtype=dtype, device=dev)
+               if n > _REG_MAX_N else x)     # unread at n <= _REG_MAX_N
+    fn = ("kl_barrier_fused_f32" if dtype == torch.float32
+          else "kl_barrier_fused_f64")
+    ptr = _build.ptr
+    _build.launch(_build.load_kl_barrier(), fn, "kl_barrier_fused", dev,
+                  ptr(Hs), ptr(u), ptr(A), ptr(b), ptr(x0), *strides,
+                  ptr(ts), ptr(ls_ts), ptr(x), ptr(scratch), B, n, k,
+                  n_outer, n_inner, n_ls, ptr(lognv), default_delta(dtype),
+                  float(alpha))
+    kl_barrier_fused.launches += 1
+    return x
+
+
+kl_barrier_fused.launches = 0

@@ -39,10 +39,11 @@ The kernels take any batch and row stride for ``Hs``/``A`` (a stride-0
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
+
+from . import _build
 
 # widest dual dimension k + 1 + mE the kernels unroll in registers
 _FUSED_MAX_DIM = 16
@@ -419,14 +420,16 @@ def kl_dual_fused_plain(Hs, u, A=None, r=None, log_prior=None, *,
 
 
 # --------------------------------------------------------------- plain K2
-def _polish_f64(ctx, z, steps, *, guard_sick):
+def _polish_f64(ctx, z, steps, *, guard_sick, solve=_solve_small):
     """Warm projected-Newton polish in f64 (the algebra of the reference's
     models/dist_kl.py::_kl_warm_polish): no line search, a full step
     capped at the first lam boundary, a snap at 8 eps |z|, and no step for
     a non-finite or oversized (|dz| > 1e3) direction.  ``guard_sick``
     also refuses the step of a sick (near-singular) system, as the TPU
     certified kernel's _ds_polish does (pallas_kl_dual.py:608-615); the
-    reference's XLA f64 finish has no such guard."""
+    reference's XLA f64 finish has no such guard.  ``solve(m, gf, dim)``
+    returns (dz, sick) for the upper-triangle dict ``m``; the default is
+    the kernels' unrolled solve."""
     dim, k, ws = ctx.dim, ctx.k, ctx.ws
     eps = torch.finfo(torch.float64).eps
     max_e = 0.9 * math.log(torch.finfo(torch.float64).max)
@@ -456,7 +459,7 @@ def _polish_f64(ctx, z, steps, *, guard_sick):
                     # ridge at 1e-13 of the diagonal
                     mij = mij + 1e-13 * mij
                 m[(i, j)] = mij
-        dz, sick = _solve_small(m, gf, dim)
+        dz, sick = solve(m, gf, dim)
         for j in range(k):
             dz[j] = torch.where((z[j] <= 0.0) & (dz[j] < 0.0), 0.0, dz[j])
         t_bd = torch.full_like(ry, math.inf)
@@ -573,19 +576,7 @@ def _kernel_args(name, dtype, tensors, log_prior, lp_dtype):
 
 
 def _launch(fn, name, dev, *args):
-    from . import _build
-
-    lib = _build.load_kl_dual()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({lib.kl_dual_error_string(err).decode()})")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    _build.launch(_build.load_kl_dual(), fn, name, dev, *args)
 
 
 def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
@@ -620,9 +611,10 @@ def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
         return x, gap, z
     fn = ("kl_dual_fused_f32" if Hs.dtype == torch.float32
           else "kl_dual_fused_f64")
+    ptr = _build.ptr
     _launch(fn, "kl_dual_fused", Hs.device,
-            _ptr(Hs), _ptr(u), _ptr(A), _ptr(r), _ptr(log_prior), *strides,
-            _ptr(x), _ptr(gap), _ptr(z), B, n, k, A.shape[1], n_steps,
+            ptr(Hs), ptr(u), ptr(A), ptr(r), ptr(log_prior), *strides,
+            ptr(x), ptr(gap), ptr(z), B, n, k, A.shape[1], n_steps,
             float(z0), n_ls)
     kl_dual_fused.launches += 1
     return x, gap, z
@@ -662,9 +654,10 @@ def kl_dual_fused_cert(Hs, u, A=None, r=None, log_prior=None, *,
     gap, ineq, eq = (torch.empty((B,), **f64) for _ in range(3))
     if B == 0:
         return x, z, gap, ineq, eq
+    ptr = _build.ptr
     _launch("kl_dual_fused_cert_f32", "kl_dual_fused_cert", Hs.device,
-            _ptr(Hs), _ptr(u), _ptr(A), _ptr(r), _ptr(log_prior), *strides,
-            _ptr(x), _ptr(z), _ptr(gap), _ptr(ineq), _ptr(eq), B, n, k,
+            ptr(Hs), ptr(u), ptr(A), ptr(r), ptr(log_prior), *strides,
+            ptr(x), ptr(z), ptr(gap), ptr(ineq), ptr(eq), B, n, k,
             A.shape[1], n_steps, float(z0), n_ls, polish_steps)
     kl_dual_fused_cert.launches += 1
     return x, z, gap, ineq, eq

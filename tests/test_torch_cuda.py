@@ -1,6 +1,7 @@
-"""The CUDA kernels K1 ``kl_dual_fused`` and K2 ``kl_dual_fused_cert`` on
-the card: each against its plain PyTorch version on the same CUDA inputs,
-the wrappers' refusals, and the launch counters.
+"""The CUDA kernels on the card: K1 ``kl_dual_fused``, K2
+``kl_dual_fused_cert``, K3 ``kl_barrier_fused`` and K4
+``cholesky_batched_cuda``, each against its plain PyTorch version on the
+same CUDA inputs, the wrappers' refusals, and the launch counters.
 
 Every test here needs a CUDA device (the kernels have no CPU mode), carries
 the ``cuda`` marker and skips without one.  The file imports no JAX, so it
@@ -13,13 +14,20 @@ floor), f64 K1 <= 1e-9 (summation order only), and K1's z within 1e-4
 (f32) / 1e-8 (f64) of the plain z, relative to 1 + |z|.  K2 on certified
 lanes (both ends polished to f64 rounding): max |dx| <= 1e-11, |dgap| <=
 1e-10, z within 1e-9 relative to 1 + |z|, ineq_res and eq_res within
-1e-12.
+1e-12.  K3: max |dx| <= 1e-5 in f32 (late Armijo decisions at f32
+resolution), 1e-11 in f64.  K4: max |dL| <= 1e-4 relative to max |L| in
+f32 and 1e-10 in f64, NaN where the plain version has NaN.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cvx_tpu_torch.ops.chol import (cholesky_batched,
+                                    cholesky_batched_cuda,
+                                    cholesky_batched_plain)
+from cvx_tpu_torch.ops.kl_barrier import (kl_barrier_fused,
+                                          kl_barrier_fused_plain)
 from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                                        kl_dual_fused_cert_plain,
                                        kl_dual_fused_plain)
@@ -109,4 +117,93 @@ def test_launch_counters_count_kernel_launches_only(dev):
     x, gap, z = kl_dual_fused(H[:0], U[:0])      # empty batch: no launch
     assert x.shape == (0, 4) and z.shape == (0, 3)
     assert kl_dual_fused.launches == k1 + 1
+    torch.cuda.synchronize()
+
+
+def _primal_family(B, n, k, dev, dtype):
+    """bench.py's family with its analytic feasible start; shared rows as
+    stride-0 expands."""
+    rng = np.random.default_rng(B + n)
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    I_B = np.zeros(n); I_B[n // 2:] = 1.0
+    pA = rng.uniform(0.2, 0.5, B)
+    U = np.column_stack([-pA, rng.uniform(0.55, 0.8, B)])[:, :k]
+    w = pA + 0.05
+    X0 = (w / 3)[:, None] * I_A + ((1 - w) / (n - 3))[:, None] * (1 - I_A)
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    ones = torch.ones((1, 1, n), dtype=dtype, device=dev)
+    return (t(np.stack([-I_A, I_B])[:k])[None].expand(B, -1, -1), t(U),
+            ones.expand(B, -1, -1), ones[0, :, :1].expand(B, 1), t(X0))
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("B,n,k,dtype", [(1000, 100, 2, torch.float32),
+                                         (37, 77, 1, torch.float32),
+                                         (37, 77, 2, torch.float64),
+                                         (64, 200, 2, torch.float32),
+                                         (64, 200, 1, torch.float64),
+                                         (16, 300, 2, torch.float32)])
+def test_k3_matches_plain(dev, B, n, k, dtype):
+    args = _primal_family(B, n, k, dev, dtype)
+    kw = dict(mu=55.0, n_inner=3)
+    x = kl_barrier_fused(*args, **kw)
+    xp = kl_barrier_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-11
+    assert bool(torch.isfinite(x).all())
+    assert float((x - xp).abs().max()) <= tol
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("n,dtype", [(77, torch.float32),
+                                     (128, torch.float64),
+                                     (512, torch.float32)])
+def test_k4_matches_plain(dev, n, dtype):
+    rng = np.random.default_rng(n)
+    M = rng.standard_normal((7, n, n))
+    X = torch.tensor(M @ M.transpose(0, 2, 1) / n + np.eye(n), dtype=dtype,
+                     device=dev)
+    X[3, 10, 10] = -1.0                 # lane 3 is not positive definite
+    L = cholesky_batched_cuda(X)
+    Lp = cholesky_batched_plain(X)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(L), torch.isnan(Lp))
+    ok = torch.tensor([0, 1, 2, 4, 5, 6], device=dev)
+    scale = float(Lp[ok].abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((L[ok] - Lp[ok]).abs().max()) <= tol * scale
+    assert torch.equal(torch.triu(L[ok], 1), torch.zeros_like(L[ok]))
+    assert torch.equal(cholesky_batched(X, method="cuda").isnan(),
+                       L.isnan())
+
+
+@pytest.mark.timeout(600)
+def test_k3_k4_wrappers_refuse_and_count(dev):
+    args = _primal_family(4, 16, 2, dev, torch.float32)
+    with pytest.raises(ValueError, match="f32/f64 CUDA"):
+        kl_barrier_fused(*(a.half() for a in args))
+    with pytest.raises(ValueError, match="must be on"):
+        kl_barrier_fused(*args[:4], args[4].cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        kl_barrier_fused(*args[:4], torch.zeros((4, 32), device=dev)[:, ::2])
+    X = torch.eye(8, device=dev).expand(3, -1, -1)
+    with pytest.raises(ValueError, match="f32/f64 CUDA"):
+        cholesky_batched_cuda(X.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cholesky_batched_cuda(torch.eye(8, device=dev).repeat(3, 1, 2)
+                              [:, :, ::2])
+    with pytest.raises(ValueError, match="n = 900"):
+        cholesky_batched_cuda(torch.eye(900, dtype=torch.float64,
+                                        device=dev)[None])
+    k3, k4 = kl_barrier_fused.launches, cholesky_batched_cuda.launches
+    kl_barrier_fused(*args)
+    kl_barrier_fused_plain(*args)
+    cholesky_batched_cuda(X)            # stride-0 batch, read in place
+    cholesky_batched_plain(X)
+    cholesky_batched(X)                 # "torch": no kernel of ours
+    assert (kl_barrier_fused.launches, cholesky_batched_cuda.launches) == (
+        k3 + 1, k4 + 1)
     torch.cuda.synchronize()

@@ -70,7 +70,8 @@ class TestZoo:
         data = _zoo(name, n)
         ref = RefDistKL.create(n, **{k: jnp.asarray(v)
                                      for k, v in data.items()})
-        port = DistKL.create(n, **{k: _t(v) for k, v in data.items()})
+        port = DistKL.create(n, **{k: _t(v) for k, v in data.items()},
+                             device="cpu")
         s_ref = ref.solve(method="dual_fused")
         s = port.solve(method="dual_fused")
         x = s.x.numpy()
@@ -97,7 +98,8 @@ class TestZoo:
         data = _zoo(name, 20)
         ref = RefDistKL.create(20, **{k: jnp.asarray(v)
                                       for k, v in data.items()})
-        port = DistKL.create(20, **{k: _t(v) for k, v in data.items()})
+        port = DistKL.create(20, **{k: _t(v) for k, v in data.items()},
+                             device="cpu")
         s_ref = ref.solve(method="dual_fused_cert")
         s = port.solve(method="dual_fused_cert")
         assert np.max(np.abs(s.x.numpy() - np.asarray(s_ref.x))) <= CERT_DX
@@ -128,7 +130,8 @@ class TestCreate:
         with pytest.raises(ValueError) as ref_err:
             RefDistKL.create(8, **{k: jnp.asarray(v) for k, v in kw.items()})
         with pytest.raises(ValueError) as err:
-            DistKL.create(8, **{k: _t(v) for k, v in kw.items()})
+            DistKL.create(8, **{k: _t(v) for k, v in kw.items()},
+                          device="cpu")
         assert str(err.value) == str(ref_err.value)
 
     @pytest.mark.timeout(30)
@@ -136,8 +139,9 @@ class TestCreate:
         w = np.random.default_rng(0).uniform(0.5, 2.0, 8)
         kw = dict(H=np.eye(2, 8), u=np.array([0.3, 0.4]), prior=w)
         ref = RefDistKL.create(8, **{k: jnp.asarray(v) for k, v in kw.items()})
-        port = DistKL.create(8, **{k: _t(v) for k, v in kw.items()})
-        port2 = distkl_from_numpy(ref)
+        port = DistKL.create(8, **{k: _t(v) for k, v in kw.items()},
+                             device="cpu")
+        port2 = distkl_from_numpy(ref, device="cpu")
         for p in (port, port2):
             assert p.dual_dim == ref.dual_dim == 3
             assert p.num_ineq_dual == ref.num_ineq_dual == 2
@@ -158,22 +162,50 @@ class TestCreate:
                            np.asarray(ref.primal_optimum(jnp.asarray(z))),
                            rtol=0, atol=1e-15)
         assert DistKL.create(8, H=_t(kw["H"], torch.float32),
-                             u=[0.0, 0.0]).H.dtype == torch.float32
+                             u=[0.0, 0.0], device="cpu"
+                             ).H.dtype == torch.float32
+
+    @pytest.mark.timeout(30)
+    def test_default_device_is_the_card(self):
+        # no device argument: the card, never a quiet CPU run; without a
+        # CUDA device the call raises
+        kw = dict(H=np.eye(2, 8), u=np.array([0.3, 0.4]))
+        ref = RefDistKL.create(8, **{k: jnp.asarray(v) for k, v in kw.items()})
+        calls = (lambda: DistKL.create(8, **kw), lambda: distkl_from_numpy(ref))
+        for call in calls:
+            if torch.cuda.is_available():
+                p = call()
+                assert {t.device.type for t in (p.H, p.u, p.A, p.r)} == \
+                    {"cuda"}
+            else:
+                with pytest.raises((RuntimeError, AssertionError)):
+                    call()
+        assert DistKL.create(8, **kw, device="cpu").H.device.type == "cpu"
 
     @pytest.mark.timeout(30)
     def test_unported_routes_raise(self):
         port = DistKL.create(8, **{k: _t(v) for k, v in
-                                   dict(H=np.eye(2, 8), u=[0.3, 0.4]).items()})
-        for method in ("dual", "dual_fast", "BR", "PD", "BR_fast", "fused"):
-            with pytest.raises(NotImplementedError, match="ROADMAP M"):
+                                   dict(H=np.eye(2, 8), u=[0.3, 0.4]).items()},
+                             device="cpu")
+        for method in ("dual", "dual_BR", "dual_PD", "BR", "PD"):
+            with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+                port.solve(method=method)
+        with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+            port.solve_jittable(np.full(8, 0.125), method="BR")
+        # the primal routes need phase-I without a feasible point
+        for method in ("BR_fast", "fused"):
+            with pytest.raises(NotImplementedError, match="phase-I.*M7"):
                 port.solve(method=method)
         with pytest.raises(ValueError, match="unknown method"):
             port.solve(method="nope")
-        wide = DistKL.create(24, H=_t(np.eye(16, 24)), u=_t(np.ones(16)))
-        with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-            wide.solve(method="dual_fused")
-        with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-            wide.solve_certified_batch(_t(np.ones((2, 16))))
+        with pytest.raises(ValueError, match="unknown method"):
+            port.solve_jittable(np.full(8, 0.125), method="nope")
+        # dual dim 17, past the fused kernels: the dual_fast fallback
+        wide = DistKL.create(24, H=_t(np.eye(16, 24)), u=_t(np.ones(16)),
+                             device="cpu")
+        s = wide.solve(method="dual_fused")
+        assert torch.equal(s.x, wide.solve(method="dual_fast").x)
+        assert not bool(s.stalled) and int(s.iters) == 30
 
 
 def _cert_fixture(B=8, n=32, seed=3):
@@ -195,7 +227,8 @@ class TestCertified:
                                dtype=jnp.float32)
         s_ref = ref.solve_certified_batch(jnp.asarray(U), steps=10,
                                           polish_steps=2, fused_cert=True)
-        port = DistKL.create(n, H=torch.from_numpy(H), u=torch.zeros(2))
+        port = DistKL.create(n, H=torch.from_numpy(H), u=torch.zeros(2),
+                             device="cpu")
         s = port.solve_certified_batch(torch.from_numpy(U), steps=10,
                                        polish_steps=2, fused_cert=True)
         x, gap = s.x.numpy(), s.duality_gap.numpy()
@@ -233,7 +266,8 @@ class TestCertified:
                                u=jnp.zeros((k,), jnp.float32),
                                dtype=jnp.float32)
         s_ref = ref.solve_certified_batch(jnp.asarray(U))
-        port = DistKL.create(n, H=torch.from_numpy(H), u=torch.zeros(k))
+        port = DistKL.create(n, H=torch.from_numpy(H), u=torch.zeros(k),
+                             device="cpu")
         for fused in (None, False):         # auto = K2; K1 + f64 finish
             s = port.solve_certified_batch(torch.from_numpy(U),
                                            fused_cert=fused)
@@ -261,7 +295,8 @@ class TestCertified:
                                dtype=jnp.float32)
         s_ref = ref.solve_certified_batch(jnp.asarray(U), r=jnp.asarray(R),
                                           fused_cert=False)
-        port = DistKL.create(n, A=torch.from_numpy(A), r=torch.zeros(2))
+        port = DistKL.create(n, A=torch.from_numpy(A), r=torch.zeros(2),
+                             device="cpu")
         for fused in (None, False):
             s = port.solve_certified_batch(torch.from_numpy(U),
                                            r=torch.from_numpy(R),
@@ -293,7 +328,8 @@ class TestCertified:
         flags_ref = np.asarray(
             ref.solve_certified_batch(jnp.asarray(U)).stalled)
         assert np.array_equal(flags_ref, bad)
-        port = DistKL.create(n, H=torch.from_numpy(H), u=torch.zeros(2))
+        port = DistKL.create(n, H=torch.from_numpy(H), u=torch.zeros(2),
+                             device="cpu")
         for fused in (None, False):
             s = port.solve_certified_batch(torch.from_numpy(U),
                                            fused_cert=fused)
@@ -306,7 +342,8 @@ class TestCertified:
     @pytest.mark.timeout(30)
     def test_fused_cert_needs_f32(self):
         # test_round5.py::TestFusedCertDtypeGuard
-        port = DistKL.create(16, H=_t(np.eye(2, 16)), u=_t(np.zeros(2)))
+        port = DistKL.create(16, H=_t(np.eye(2, 16)), u=_t(np.zeros(2)),
+                             device="cpu")
         U = _t(np.full((2, 2), 0.5))
         with pytest.raises(ValueError, match="f32"):
             port.solve_certified_batch(U, fused_cert=True)
@@ -333,7 +370,8 @@ class TestCertified:
                     prior=p)
         ref = RefDistKL.create(n, **{k: jnp.asarray(v)
                                      for k, v in data.items()})
-        port = DistKL.create(n, **{k: _t(v) for k, v in data.items()})
+        port = DistKL.create(n, **{k: _t(v) for k, v in data.items()},
+                             device="cpu")
         s_ref = ref.solve(method="dual_fused_cert")
         s = port.solve(method="dual_fused_cert")
         assert float(s.duality_gap) <= 1e-8
@@ -370,8 +408,16 @@ class TestKLCertify:
         for f in ("x", "gap", "ineq_res", "eq_res", "lam", "nu"):
             assert np.max(np.abs(getattr(got, f).numpy()
                                  - np.asarray(getattr(ref, f)))) <= 1e-12, f
-        with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-            kl_certify(_t(H), _t(u), _t(A), _t(b), _t(x), z0=None)
+        # the cold branch (z0=None) against the reference's
+        ref = jax.vmap(lambda ui, bi, xi: ref_kl_certify(
+            jnp.asarray(H), ui, jnp.asarray(A), bi, xi, polish_steps=3,
+            compare_input=compare_input))(
+                jnp.asarray(u), jnp.asarray(b), jnp.asarray(x))
+        got = kl_certify(_t(H), _t(u), _t(A), _t(b), _t(x), polish_steps=3,
+                         compare_input=compare_input)
+        for f in ("x", "gap", "ineq_res", "eq_res", "lam", "nu"):
+            assert np.max(np.abs(getattr(got, f).numpy()
+                                 - np.asarray(getattr(ref, f)))) <= 1e-12, f
 
     @pytest.mark.timeout(30)
     def test_solver_params_defaults(self):
