@@ -150,23 +150,30 @@ def primal_args(H, U, X0, dev, dtype=torch.float32):
 
 
 def primal_cases(dev):
-    """(name, dtype, K3 args) for phase 3."""
+    """(name, dtype, K3 args, line-search options) for phase 3."""
     out = []
     H, U = bench_family(10000, 100, seed=0)
-    out.append(("bench 10000 x n=100, k=2", torch.float32,
-                primal_args(H, U, feasible_points(U, 100), dev)))
+    bench = primal_args(H, U, feasible_points(U, 100), dev)
+    out.append(("bench 10000 x n=100, k=2", torch.float32, bench, {}))
     out.append(("bench 10000 x n=100, k=1", torch.float32,
-                primal_args(H[:1], U[:, :1], feasible_points(U, 100), dev)))
+                primal_args(H[:1], U[:, :1], feasible_points(U, 100), dev),
+                {}))
+    # one candidate; 40 (exponents past 32); increasing candidates, where
+    # the kernel evaluates all of them and keeps the longest accepted
+    for ls in (dict(n_ls=1), dict(n_ls=40), dict(beta=1.25)):
+        out.append((f"bench 10000 x n=100, k=2, {ls}", torch.float32, bench,
+                    ls))
     H, U = bench_family(37, 77, seed=2)
     for dtype in (torch.float32, torch.float64):
         out.append((f"ragged B=37 n=77 {str(dtype)[6:]}", dtype,
-                    primal_args(H, U, feasible_points(U, 77), dev, dtype)))
+                    primal_args(H, U, feasible_points(U, 77), dev, dtype),
+                    {}))
     # lane 2 starts on a bound (x0 = 0 at one coordinate): log 0 and 1/0
     # make its dx non-finite, and the no-step guard must hold it at x0
     H, U = bench_family(4, 100, seed=3)
     X0 = feasible_points(U, 100); X0[2, 40] = 0.0
     out.append(("x0 on a bound (lane 2)", torch.float32,
-                primal_args(H, U, X0, dev)))
+                primal_args(H, U, X0, dev), {}))
     return out
 
 
@@ -225,18 +232,26 @@ def compare_k2(name, got, ref):
     return dx
 
 
-def compare_k3(name, dtype, args, kern, plain, prob=None, pars=None):
-    """K3 against its plain version on x; on the bench shape also the
-    measured gap and the stall flags of the fused route's Solution."""
-    kw = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
-    xk, xp = kern(*args, **kw), plain(*args, **kw)
+def compare_k3(name, dtype, args, ls, kern, plain, prob=None, pars=None):
+    """K3 against its plain version on x, with the line-search options
+    ``ls``; on the bench shape also the measured gap and the stall flags of
+    the fused route's Solution, and x the same bits."""
+    kw = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"], **ls)
+    xk = kern(*args, **kw)
+    xp, cand = plain(*args, count_candidates=True, **kw)
     torch.cuda.synchronize()
     nan_k, nan_p = torch.isnan(xk), torch.isnan(xp)
     check(torch.equal(nan_k, nan_p), f"K3 {name}: NaN in the same places "
           f"({int(nan_p.sum())})")
     dx = float((xk - xp).nan_to_num().abs().max())
     tol = K3_TOL if dtype == torch.float32 else K3_F64_TOL
-    print(f"  K3 {name}: max|dx| {dx:.3e}")
+    if name.startswith("bench") and not ls:
+        tol = 0.0      # the bench family with the default search: same bits
+    from cvx_tpu_torch.ops.kl_barrier import fused_n_outer
+    steps = fused_n_outer(args[0].shape[1] + args[0].shape[2],
+                          mu=kw["mu"]) * kw["n_inner"]
+    print(f"  K3 {name}: max|dx| {dx:.3e}; line-search candidates per step "
+          f"{float(cand.double().mean()) / steps:.4f}")
     check(dx <= tol, f"K3 {name}: max|dx| <= {tol:g}")
     if prob is not None:
         sk = prob._fused_solution(args[1], xk, pars)
@@ -364,13 +379,15 @@ def k4_bytes(B, n, itemsize):
     return B * (n * (n + 1) // 2 + n * n) * itemsize
 
 
-def k3_ops_per_coord(k, n_steps, n_ls=12):
-    # margins and f0 (2k + 6, one log), gradient / 1/h / Woodbury sums
-    # (9 + 7k + k(k + 1)), H^-1 g, H^-1 a and Schur sums (6 + 5k), dx, q,
-    # rows . dx and the step bound (8 + 2k), n_ls candidates (7 and a log
-    # each), the update (2)
-    flops = 31 + 16 * k + k * (k + 1) + 7 * n_ls
-    return n_steps * (flops + 1 + n_ls)
+def k3_ops(k, n, B, n_steps, n_cand):
+    """K3's operations for B instances of n coordinates over n_steps
+    steps that needed ``n_cand`` line-search candidates in all (the plain
+    version's ``count_candidates``).  Per coordinate and step: margins and
+    f0 (2k + 6, one log), gradient / 1/h / Woodbury sums (9 + 7k +
+    k(k + 1)), H^-1 g, H^-1 a and Schur sums (6 + 5k), dx, q, rows . dx and
+    the step bound (8 + 2k), the update (2); per candidate 7 and a log."""
+    per_step = 31 + 16 * k + k * (k + 1) + 1
+    return n * (B * n_steps * per_step + 8 * n_cand)
 
 
 def kernel_counts(*kernels):
@@ -482,8 +499,8 @@ def main() -> int:
     prob = DistKL.create(100, H=H.astype(np.float32),
                          u=np.zeros(2, np.float32))
     k3_err = 0.0
-    for cname, dtype, args in primal_cases(dev):
-        err, xk = compare_k3(cname, dtype, args, kl_barrier_fused,
+    for cname, dtype, args, ls in primal_cases(dev):
+        err, xk = compare_k3(cname, dtype, args, ls, kl_barrier_fused,
                              kl_barrier_fused_plain,
                              prob if cname.endswith("k=2") else None, pars)
         if cname.endswith("k=2"):
@@ -678,11 +695,16 @@ def main() -> int:
                                       plain_ms=best["plain"],
                                       library_ms=None)
     xk = kl_barrier_fused(*kargs, **kw)
+    # the bound counts the candidates these inputs need, not all 12
+    _, cand = kl_barrier_fused_plain(*kargs, count_candidates=True, **kw)
+    n_cand = int(cand.sum())
     record["kl_barrier_fused"]["bound"] = bound(
         bytes_in(*kargs) + bytes_out(xk),
-        ops32=10000 * 100 * k3_ops_per_coord(2, 21))
+        ops32=k3_ops(2, 100, 10000, 21, n_cand))
     print(f"  kl_barrier_fused 10000 x n=100, 21 steps: kernel "
-          f"{runs['kernel']} ms, plain {runs['plain']} ms  [{smi}]")
+          f"{runs['kernel']} ms, plain {runs['plain']} ms; line-search "
+          f"candidates {n_cand} ({n_cand / (10000 * 21):.4f} per step), "
+          f"bound {record['kl_barrier_fused']['bound'][0]:.5f} ms  [{smi}]")
 
     chol_rows = []
     for B, n in ((4096, 100), (4096, 128), (1024, 256), (256, 512)):

@@ -9,26 +9,38 @@
 // What bounds it on this card.  Per instance and Newton step the work is
 // five passes over the n coordinates, each ending in warp reductions that
 // the next pass needs: the margins and f0; the Woodbury sums; the Schur
-// sums; q, H dx and the step bound; the n_ls line-search candidates (two
-// sums and one log each per coordinate).  At the bench shape (10k
-// instances, n = 100, 21 steps) x0 and x are 8 MB (2.4 us at 3.35 TB/s),
-// and the arithmetic is about 3.5 G operations, some 166 per coordinate
-// and step, 13 of them logs (0.05 ms at the f32 peak): operations bound
-// it, not bytes, and in practice the latency of the dependent chain of
-// passes and reductions.
+// sums; q, H dx and the step bound; the line-search candidates (two sums
+// and one log each per coordinate).  At the bench shape (10k instances,
+// n = 100, 21 steps) x0 and x are 8 MB (2.4 us at 3.35 TB/s), and the
+// arithmetic is some 70 operations per coordinate and step plus 8 per
+// candidate, the candidates averaging under 3 per step (about 2 G
+// operations, 0.03 ms at the f32 peak): operations bound it, not bytes,
+// and in practice the latency of the dependent chain of passes and
+// reductions.
 //
 // What the design does about it.  One warp per instance: every reduction
 // is a register butterfly (__shfl_xor_sync) with no shared memory and no
 // barrier, and every lane then holds the per-instance scalars, so no
-// broadcast is needed.  Four warps per block.  Each lane owns the
-// coordinates i = lane + 32 c.  Up to n = kRegMaxN their state (x, log x,
-// g, 1/h, H^-1 g, H^-1 a, dx) stays in registers, NC per lane; above it the
-// same state lives in a per-instance scratch row of global memory (L2),
-// read and written only by the lane that owns the coordinate.  The rows
-// Hs and A are re-read from global memory in each pass.  The line search
-// keeps kLsChunk candidates' partial sums per lane and reduces them
-// together.  K (1 or 2 rows) and NC are template parameters, so the small
-// algebra and the coordinate loops unroll.
+// broadcast is needed and every branch on them is warp-uniform.  Four
+// warps per block.  Each lane owns the coordinates i = lane + 32 c.  Up to
+// n = kRegMaxN their state (x, log x, g, 1/h, H^-1 g, H^-1 a, dx) stays in
+// registers, NC per lane; above it the same state lives in a per-instance
+// scratch row of global memory (L2), read and written only by the lane
+// that owns the coordinate.  The rows Hs and A are re-read from global
+// memory in each pass.  K (1 or 2 rows) and NC are template parameters,
+// so the small algebra and the coordinate loops unroll.
+//
+// The line search does only the candidates the data needs.  The TPU
+// evaluated all n_ls of them as one tensor and kept the longest accepted;
+// here a step whose result is known is skipped (q < -eps fails, or no
+// candidate is positive), and the candidates, non-increasing whenever
+// beta^expo is (each warp reads them once, before its first step), are
+// tried kLsChunk at a time in order until one is accepted: that one is the
+// longest.  Its x is the next x by the same expression, so its logs and
+// its two sums are the next step's log x and f0 sums, and pass 1 takes no
+// log after a step (in registers only; the scratch path recomputes them).
+// Every decision is the same bits as evaluating all candidates: each
+// candidate's sums keep the per-lane order and the butterfly.
 //
 // Numerics follow the reference: IEEE log/div (no fast math, no flush to
 // zero), NaN-propagating min like jnp.minimum, and the same order of
@@ -38,8 +50,8 @@
 // value is read back to the host before the launch.  Sums over the
 // coordinates are reduced by a warp butterfly, which need not pair the
 // partial sums as the plain version's row sums do, so late Armijo decisions
-// at f32 resolution may differ: the kernel is held to the plain version by
-// a tolerance.
+// at f32 resolution may differ from it (on the bench family they have not:
+// max |dx| 0); the kernel is held to the plain version by a tolerance.
 //
 // Interface: plain C, pointers and element strides; the lane axis of Hs,
 // A and x0 is contiguous, their batch strides are free (0 for a shared,
@@ -55,7 +67,9 @@ namespace {
 
 constexpr int kWarpsPerBlock = 4;  // instances per block
 constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr int kLsChunk = 12;       // line-search candidates per reduction
+// line-search candidates per pass over the coordinates: 1 beat 2 and 4 at
+// the bench shape (fewer registers, and most searches stop at the first)
+constexpr int kLsChunk = 1;
 constexpr int kRegMaxN = 256;      // _REG_MAX_N in ../kl_barrier.py
 constexpr int kScratchRows = 6;    // log x, g, 1/h, H^-1 g, H^-1 a, dx
 constexpr unsigned kFull = 0xffffffffu;
@@ -143,6 +157,26 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
     if (i < n) x[c] = x0[b * sxb + i];
   }
 
+  // The candidates' factors beta^expo, read once: when they do not
+  // increase, neither do the candidates s_max beta^expo for s_max > 0, so
+  // the first accepted candidate is the longest and the search stops
+  // there; when none is negative, a non-positive (or NaN) s_max has no
+  // positive candidate and the search is skipped.
+  bool desc = true, neg = false;
+  for (int l = lane; l < n_ls; l += 32) {
+    const T f = ls_ts[l];
+    neg = neg || f < T(0);
+    if (l + 1 < n_ls) desc = desc && ls_ts[l + 1] <= f;
+  }
+  const bool ls_desc = __all_sync(kFull, desc);
+  const bool ls_neg = __any_sync(kFull, neg);
+
+  // f0's two coordinate sums for the current x, valid with lx = log x;
+  // an accepted candidate hands over its own (the same bits: its xs is the
+  // next x, computed by the same expression, summed in the same order)
+  T sum_xl = T(0), sum_l = T(0);
+  bool have_logs = false;
+
   for (int step = 0; step < n_outer * n_inner; ++step) {
     const T t = ts[step / n_inner];
 
@@ -155,13 +189,15 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
       const int i = lane + 32 * c;
       if (i >= n) continue;
       const T xi = x[c];
-      const T l = klog(xi);
-      lx[c] = l;
 #pragma unroll
       for (int j = 0; j < K; ++j) hx[j] += Hb[j * sHk + i] * xi;
       ax += a0[i] * xi;
-      sxl += xi * (lognv + l);
-      sl += l;
+      if (!have_logs) {
+        const T l = klog(xi);
+        lx[c] = l;
+        sxl += xi * (lognv + l);
+        sl += l;
+      }
     }
     T ds[K], inv_ds[K];
 #pragma unroll
@@ -170,7 +206,12 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
       inv_ds[j] = T(1) / ds[j];
     }
     ax = warp_sum(ax);
-    T f0 = t * warp_sum(sxl) - warp_sum(sl);
+    if (!have_logs) {
+      sum_xl = warp_sum(sxl);
+      sum_l = warp_sum(sl);
+      have_logs = true;
+    }
+    T f0 = t * sum_xl - sum_l;
 #pragma unroll
     for (int j = 0; j < K; ++j) f0 = f0 - klog(ds[j]);
 
@@ -289,50 +330,70 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
     }
     s_max = T(0.99) * s_max;
 
-    // pass 5: the candidates s_max beta^expo, kLsChunk at a time; the
-    // longest one that keeps every margin positive and passes Armijo
+    // pass 5: the longest candidate s_max beta^expo that keeps every
+    // margin positive and passes Armijo, kLsChunk candidates per pass over
+    // the coordinates.  A failed q < -eps gate, or no positive candidate,
+    // gives no step whatever the candidates would: skip them.  Every lane
+    // holds the same sums, so each exit below is warp-uniform.
     T s_best = T(0);
-    for (int l0 = 0; l0 < n_ls; l0 += kLsChunk) {
-      T ss[kLsChunk], a1[kLsChunk], a2[kLsChunk];
-      bool okx[kLsChunk];
-#pragma unroll
-      for (int l = 0; l < kLsChunk; ++l) {
-        ss[l] = l0 + l < n_ls ? s_max * ls_ts[l0 + l] : T(0);
-        a1[l] = a2[l] = T(0);
-        okx[l] = true;
-      }
-#pragma unroll
-      for (int c = 0; c < nc; ++c) {
-        const int i = lane + 32 * c;
-        if (i >= n) continue;
-        const T xi = x[c], di = dx[c];
+    bool handed_over = false;     // the accepted candidate's logs and sums
+    if (q < -eps && (s_max > T(0) || ls_neg)) {
+      const bool first_wins = ls_desc && s_max > T(0);
+      bool done = false;
+      for (int l0 = 0; l0 < n_ls && !done; l0 += kLsChunk) {
+        T ss[kLsChunk], a1[kLsChunk], a2[kLsChunk];
+        T lc[kLsChunk][NC > 0 ? NC : 1];   // their logs, in registers only
+        bool okx[kLsChunk];
 #pragma unroll
         for (int l = 0; l < kLsChunk; ++l) {
-          const T xs = xi + ss[l] * di;
-          okx[l] = okx[l] && xs > T(0);
-          const T lxs = klog(xs > T(0) ? xs : T(1));
-          a1[l] += xs * (lognv + lxs);
-          a2[l] += lxs;
+          ss[l] = l0 + l < n_ls ? s_max * ls_ts[l0 + l] : T(0);
+          a1[l] = a2[l] = T(0);
+          okx[l] = true;
         }
-      }
 #pragma unroll
-      for (int l = 0; l < kLsChunk; ++l) {
-        const bool ok_all = __all_sync(kFull, okx[l]);
-        const T s1 = warp_sum(a1[l]), s2 = warp_sum(a2[l]);
-        if (l0 + l >= n_ls) continue;
-        T fs = t * s1 - s2;
-        bool ok = ok_all;
+        for (int c = 0; c < nc; ++c) {
+          const int i = lane + 32 * c;
+          if (i >= n) continue;
+          const T xi = x[c], di = dx[c];
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const T dsj = ds[j] - ss[l] * udx[j];
-          ok = ok && dsj > T(0);
-          fs = fs - klog(dsj > T(0) ? dsj : T(1));
+          for (int l = 0; l < kLsChunk; ++l) {
+            const T xs = xi + ss[l] * di;
+            okx[l] = okx[l] && xs > T(0);
+            const T lxs = klog(xs > T(0) ? xs : T(1));
+            if constexpr (NC > 0) lc[l][c] = lxs;
+            a1[l] += xs * (lognv + lxs);
+            a2[l] += lxs;
+          }
         }
-        const bool armijo = fs <= f0 + alpha * ss[l] * q;
-        if (ok && armijo && ss[l] > s_best) s_best = ss[l];
+#pragma unroll
+        for (int l = 0; l < kLsChunk; ++l) {
+          if (done || l0 + l >= n_ls || !__all_sync(kFull, okx[l])) continue;
+          const T s1 = warp_sum(a1[l]), s2 = warp_sum(a2[l]);
+          T fs = t * s1 - s2;
+          bool ok = true;
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const T dsj = ds[j] - ss[l] * udx[j];
+            ok = ok && dsj > T(0);
+            fs = fs - klog(dsj > T(0) ? dsj : T(1));
+          }
+          const bool armijo = fs <= f0 + alpha * ss[l] * q;
+          if (!(ok && armijo && ss[l] > s_best)) continue;
+          s_best = ss[l];
+          done = first_wins;
+          if constexpr (NC > 0) {
+            if (done) {
+#pragma unroll
+              for (int c = 0; c < nc; ++c)
+                if (lane + 32 * c < n) lx[c] = lc[l][c];
+              sum_xl = s1;
+              sum_l = s2;
+              handed_over = true;
+            }
+          }
+        }
       }
     }
-    if (!(q < -eps)) s_best = T(0);
     // no-step guard: a non-finite dx never reaches x (0 * NaN = NaN)
     if (s_best > T(0)) {
 #pragma unroll
@@ -340,6 +401,7 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
         const int i = lane + 32 * c;
         if (i < n) x[c] = x[c] + s_best * dx[c];
       }
+      have_logs = handed_over;
     }
   }
   T* xb = xout + (long long)b * n;

@@ -92,9 +92,11 @@ def _check_args(Hs, u, A, b, x0, *, t0, mu, tol, n_outer, n_inner, n_ls):
 def _schedule(n, dtype, device, *, t0, mu, n_outer, beta, n_ls):
     """(t per stage (n_outer,), the candidates' beta^expo (n_ls,), log n),
     in the working dtype as the reference computes them
-    (pallas_kl.py:104-117)."""
+    (pallas_kl.py:104-117).  Filled on the device: torch.tensor(v,
+    device=cuda) copies from the host and waits for the stream, which would
+    hold each launch until the previous kernel ends."""
     def c(v):
-        return torch.tensor(v, dtype=dtype, device=device)
+        return torch.full((), v, dtype=dtype, device=device)
 
     stage = torch.arange(n_outer, device=device).to(dtype)
     ts = t0 * torch.exp(stage * torch.log(c(float(mu))))
@@ -106,16 +108,28 @@ def _schedule(n, dtype, device, *, t0, mu, n_outer, beta, n_ls):
 
 def kl_barrier_fused_plain(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
                            n_outer=None, n_inner=8, alpha=0.04, beta=0.8,
-                           n_ls=12):
+                           n_ls=12, count_candidates=False):
     """Plain PyTorch version of K3 (any device, f32 or f64); returns x
     (B, n).  ``Hs`` (B, k, n), ``u`` (B, k), ``A`` (B, 1, n), ``b`` (B, 1),
-    ``x0`` (B, n) strictly feasible."""
+    ``x0`` (B, n) strictly feasible.
+
+    With ``count_candidates`` it returns ``(x, c)``, x unchanged and ``c``
+    (B,) int64 the line-search candidates the kernel needs, summed over the
+    steps: 0 for a step whose search is gated (``q < -eps`` fails, or
+    ``s_max`` is not positive and no candidate factor is negative), else
+    the index of the first accepted candidate plus 1, or ``n_ls`` when none
+    is accepted or the candidates are not non-increasing (then every one is
+    evaluated)."""
     n_outer = _check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
                           n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
     B, k, n = Hs.shape
     dtype = Hs.dtype
     ts, ls_ts, lognv = _schedule(n, dtype, Hs.device, t0=t0, mu=mu,
                                  n_outer=n_outer, beta=beta, n_ls=n_ls)
+    if count_candidates:
+        count = torch.zeros(B, dtype=torch.int64, device=Hs.device)
+        descending = bool((ls_ts[1:] <= ls_ts[:-1]).all())
+        has_neg = bool((ls_ts < 0).any())
     delta = default_delta(dtype)
     eps_mach = torch.finfo(dtype).eps
     rows = [Hs[:, j, :] for j in range(k)]          # k x (B, n)
@@ -203,10 +217,27 @@ def kl_barrier_fused_plain(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
         armijo = fs <= f0 + alpha * ss * q
         s_best = torch.where(ok & armijo, ss, 0.0).amax(dim=1, keepdim=True)
         s_best = torch.where(q < -eps_mach, s_best, 0.0)
+        if count_candidates:
+            count += _candidates_needed(ok & armijo & (ss > 0), q < -eps_mach,
+                                        s_max > 0, descending, has_neg)
         # no-step guard: dx may be non-finite once an instance's margins
         # drop below the dtype's resolution; 0 * NaN = NaN
         x = torch.where(s_best > 0, x + s_best * dx, x)
-    return x
+    return (x, count) if count_candidates else x
+
+
+def _candidates_needed(accepted, q_ok, s_pos, descending, has_neg):
+    """(B,) candidates K3 evaluates in one step: ``accepted`` (B, n_ls),
+    ``q_ok`` and ``s_pos`` (B, 1).  With s_max > 0 the candidates keep the
+    order of beta^expo, so when those do not increase the first accepted
+    one is the longest and the search stops there."""
+    n_ls = accepted.shape[1]
+    idx = torch.arange(n_ls, device=accepted.device)
+    first = torch.where(accepted, idx, n_ls - 1).amin(dim=1) + 1
+    needed = torch.where(s_pos[:, 0], first, n_ls) if descending else \
+        torch.full_like(first, n_ls)
+    searched = q_ok[:, 0] & (s_pos[:, 0] | has_neg)
+    return torch.where(searched, needed, 0)
 
 
 def _kernel_strides(Hs, u, A, b, x0):

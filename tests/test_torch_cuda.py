@@ -15,8 +15,9 @@ floor), f64 K1 <= 1e-9 (summation order only), and K1's z within 1e-4
 lanes (both ends polished to f64 rounding): max |dx| <= 1e-11, |dgap| <=
 1e-10, z within 1e-9 relative to 1 + |z|, ineq_res and eq_res within
 1e-12.  K3: max |dx| <= 1e-5 in f32 (late Armijo decisions at f32
-resolution), 1e-11 in f64.  K4: max |dL| <= 1e-4 relative to max |L| in
-f32 and 1e-10 in f64, NaN where the plain version has NaN.
+resolution), 1e-11 in f64, and 0 on bench.py's family at 1000 x n = 100
+with the default line search.  K4: max |dL| <= 1e-4 relative to max |L|
+in f32 and 1e-10 in f64, NaN where the plain version has NaN.
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ import torch
 from cvx_tpu_torch.ops.chol import (cholesky_batched,
                                     cholesky_batched_cuda,
                                     cholesky_batched_plain)
-from cvx_tpu_torch.ops.kl_barrier import (kl_barrier_fused,
+from cvx_tpu_torch.ops.kl_barrier import (_schedule, kl_barrier_fused,
                                           kl_barrier_fused_plain)
 from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                                        kl_dual_fused_cert_plain,
@@ -140,21 +141,52 @@ def _primal_family(B, n, k, dev, dtype):
 
 
 @pytest.mark.timeout(600)
-@pytest.mark.parametrize("B,n,k,dtype", [(1000, 100, 2, torch.float32),
-                                         (37, 77, 1, torch.float32),
-                                         (37, 77, 2, torch.float64),
-                                         (64, 200, 2, torch.float32),
-                                         (64, 200, 1, torch.float64),
-                                         (16, 300, 2, torch.float32)])
-def test_k3_matches_plain(dev, B, n, k, dtype):
+@pytest.mark.parametrize("B,n,k,dtype,ls", [
+    (1000, 100, 2, torch.float32, {}),
+    (37, 77, 1, torch.float32, {}),
+    (37, 77, 2, torch.float64, {}),
+    (64, 200, 2, torch.float32, {}),
+    (64, 200, 1, torch.float64, {}),
+    (16, 300, 2, torch.float32, {}),
+    # one candidate; exponents past 32; increasing candidates, where the
+    # kernel evaluates every one and keeps the longest accepted
+    (1000, 100, 2, torch.float32, dict(n_ls=1)),
+    (1000, 100, 2, torch.float32, dict(n_ls=40)),
+    (1000, 100, 2, torch.float32, dict(beta=1.25))])
+def test_k3_matches_plain(dev, B, n, k, dtype, ls):
     args = _primal_family(B, n, k, dev, dtype)
-    kw = dict(mu=55.0, n_inner=3)
+    kw = dict(mu=55.0, n_inner=3, **ls)
     x = kl_barrier_fused(*args, **kw)
     xp = kl_barrier_fused_plain(*args, **kw)
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 1e-11
+    if (B, n) == (1000, 100) and not ls:
+        tol = 0.0       # the bench family: the same bits
     assert bool(torch.isfinite(x).all())
     assert float((x - xp).abs().max()) <= tol
+
+
+@pytest.mark.timeout(600)
+def test_k3_bench_case_reaches_every_line_search_path(dev):
+    # test_k3_matches_plain's exact case, one step at a time: some searches
+    # are gated (0 candidates), some stop at a later candidate (2 to 11),
+    # some accept none (all 12); the steps chain to the whole solve's x
+    args = _primal_family(1000, 100, 2, dev, torch.float32)
+    Hs, u, A, b, x = args
+    ts, _, _ = _schedule(100, torch.float32, dev, t0=1.0, mu=55.0,
+                         n_outer=7, beta=0.8, n_ls=12)
+    per_step = []
+    for i in range(21):
+        x, c = kl_barrier_fused_plain(Hs, u, A, b, x, t0=float(ts[i // 3]),
+                                      mu=55.0, n_outer=1, n_inner=1,
+                                      count_candidates=True)
+        per_step.append(c)
+    per_step = torch.stack(per_step, dim=1)
+    xw, count = kl_barrier_fused_plain(*args, mu=55.0, n_inner=3,
+                                       count_candidates=True)
+    assert torch.equal(x, xw) and torch.equal(per_step.sum(dim=1), count)
+    assert bool((per_step == 0).any()) and bool((per_step == 12).any())
+    assert bool(((per_step > 1) & (per_step < 12)).any())
 
 
 @pytest.mark.timeout(600)

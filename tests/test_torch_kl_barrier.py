@@ -8,6 +8,10 @@ the reference pads n and sums in another order); f32 inputs to max |dx| <=
 1e-5 (late Armijo decisions at t ~ 1e10 sit at the f32 resolution of the
 barrier value, so another summation order may take another candidate and
 move x by ~1e-7).
+
+The plain version's ``count_candidates`` (the line-search candidates the
+kernel needs, which bound its work) is held to the rule read off one-step
+solves: exact counts, x unchanged bit for bit.
 """
 
 import jax.numpy as jnp
@@ -132,3 +136,110 @@ def test_wrapper_runs_the_plain_version_for_cpu_tensors():
     assert torch.equal(x, x2)
     with pytest.raises(ValueError, match="do not agree"):
         kl_barrier_fused(Hs, U[:3], A, b, X0)
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_ls", [1, 12, 40])
+@pytest.mark.parametrize("beta", [0.5, 0.8, 1.0])
+def test_line_search_factors_do_not_increase(beta, n_ls, dtype):
+    # the kernel's precondition for stopping at the first accepted
+    # candidate: beta^expo non-increasing (and none negative)
+    _, ls_ts, _ = kl_barrier._schedule(100, dtype, "cpu", t0=1.0, mu=55.0,
+                                       n_outer=7, beta=beta, n_ls=n_ls)
+    assert ls_ts.shape == (n_ls,) and ls_ts.dtype == dtype
+    assert float(ls_ts[0]) == 1.0
+    assert bool((ls_ts[1:] <= ls_ts[:-1]).all())
+    assert bool((ls_ts > 0).all())
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+@pytest.mark.parametrize("n", [16, 37])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_count_candidates_leaves_x_unchanged(dtype, k, n, schedule):
+    B = 5 if k == 2 else 3
+    arrays = [torch.from_numpy(np.ascontiguousarray(a.astype(dtype)))
+              for a in _family(B, n, k, seed=n + k)]
+    x = kl_barrier_fused_plain(*arrays, **SCHEDULES[schedule])
+    x2, count = kl_barrier_fused_plain(*arrays, count_candidates=True,
+                                       **SCHEDULES[schedule])
+    assert torch.equal(x, x2)
+    assert count.shape == (B,) and count.dtype == torch.int64
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("ls", [{}, dict(n_ls=40), dict(beta=1.25)],
+                         ids=["n_ls=12", "n_ls=40", "beta=1.25"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_count_candidates_in_range(k, ls):
+    arrays = [torch.from_numpy(a.astype(np.float32))
+              for a in _family(200, 100, k, seed=11)]
+    kw = dict(SCHEDULES["production"], **ls)
+    _, count = kl_barrier_fused_plain(*arrays, count_candidates=True, **kw)
+    n_ls = ls.get("n_ls", 12)
+    steps = kl_barrier.fused_n_outer(k + 100, mu=55.0) * 3
+    assert bool((count >= 0).all()) and bool((count <= n_ls * steps).all())
+    assert bool((count > 0).all())
+    if "beta" in ls:
+        # increasing candidates: every search that runs evaluates them all
+        assert bool((count % n_ls == 0).all())
+
+
+def _read_candidates(arrays, *, mu=55.0, n_inner=3, n_ls=12):
+    """The rule read off one-step solves, per step: the least L for which
+    a step over the first L candidates moves x (the first accepted one is
+    candidate L - 1); n_ls when only an Armijo constant that accepts every
+    feasible candidate moves it (none was accepted); 0 when nothing moves
+    it (the search is gated).  Returns (counts, x after the last step)."""
+    Hs, u, A, b, x = arrays
+    n_outer = kl_barrier.fused_n_outer(Hs.shape[1] + Hs.shape[2], mu=mu)
+    ts, _, _ = kl_barrier._schedule(Hs.shape[2], Hs.dtype, "cpu", t0=1.0,
+                                    mu=mu, n_outer=n_outer, beta=0.8,
+                                    n_ls=n_ls)
+    counts = []
+    for i in range(n_outer * n_inner):
+        one = dict(t0=float(ts[i // n_inner]), mu=mu, n_outer=1, n_inner=1)
+
+        def moves(**kw):
+            return not torch.equal(
+                kl_barrier_fused_plain(Hs, u, A, b, x, **one, **kw), x)
+
+        first = next((L for L in range(1, n_ls + 1) if moves(n_ls=L)), None)
+        counts.append(first if first is not None
+                      else n_ls if moves(n_ls=n_ls, alpha=-1e300) else 0)
+        x = kl_barrier_fused_plain(Hs, u, A, b, x, n_ls=n_ls, **one)
+    return counts, x
+
+
+@pytest.mark.timeout(120)
+def test_count_candidates_reads_the_rule_on_a_later_candidate():
+    # bench.py's family at pA = 0.47, pB = 0.65 in f64 takes later
+    # candidates in the middle stages and accepts none in the last ones
+    Hs, U, A, b, X0 = _family(1, 100, 2)
+    U[0] = (-0.47, 0.65)
+    w = 0.47 + 0.05
+    X0[0] = np.where(np.arange(100) < 3, w / 3, (1 - w) / 97)
+    arrays = [torch.from_numpy(a) for a in (Hs, U, A, b, X0)]
+    counts, x_read = _read_candidates(arrays)
+    x, count = kl_barrier_fused_plain(*arrays, count_candidates=True,
+                                      **SCHEDULES["production"])
+    assert torch.equal(x, x_read)
+    assert int(count[0]) == sum(counts)
+    assert any(1 < c < 12 for c in counts) and 12 in counts
+
+
+@pytest.mark.timeout(120)
+def test_count_candidates_is_zero_for_an_instance_on_a_bound():
+    # the instance of test_no_step_guard_holds_an_instance_on_a_bound: its
+    # q is NaN at every step, so every search is gated and the count is 0
+    Hs, U, A, b, X0 = (a[1:] for a in _family(2, 16, 2, seed=5))
+    X0[0, 7] = 0.0
+    arrays = [torch.from_numpy(np.ascontiguousarray(a))
+              for a in (Hs, U, A, b, X0)]
+    counts, x_read = _read_candidates(arrays)
+    x, count = kl_barrier_fused_plain(*arrays, count_candidates=True,
+                                      **SCHEDULES["production"])
+    assert counts == [0] * len(counts) and int(count[0]) == 0
+    assert torch.equal(x, arrays[4]) and torch.equal(x_read, arrays[4])
