@@ -7,7 +7,10 @@ its source and flags so that an edited source rebuilds and an unchanged one
 loads the cached file.  The sources have a plain C interface (pointers,
 strides, sizes, the stream), so the build needs neither PyTorch's headers
 nor a compiler for them.  A failed build raises with nvcc's output.
-``build_all`` starts one nvcc per source at once and waits for all of them.
+``build_all`` starts one nvcc per unit at once and waits for all of them.
+A unit is a source with the flags that select its part: ``kl_dual.cu``'s
+three entry points (60-odd template instances, which nvcc compiles one
+after another) are three units, so that they build on three cores.
 
 Flags: ``sm_90a`` (Hopper), no fast math (the kernels test isfinite and
 inf, and need IEEE exp/log/div/sqrt), and ``--fmad=false`` so that each
@@ -27,7 +30,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
-SOURCES = ("kl_dual.cu", "kl_barrier.cu", "chol.cu")
+# unit -> (source, further nvcc flags)
+UNITS = {"kl_dual_cert": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=3",)),
+         "kl_dual_f64": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=2",)),
+         "kl_dual_f32": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=1",)),
+         "kl_barrier": ("kl_barrier.cu", ()),
+         "chol": ("chol.cu", ())}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -42,17 +50,19 @@ def _nvcc() -> str:
                        "CUDA kernels are built from source at first use")
 
 
-def _target(source: str) -> tuple[Path, Path]:
+def _target(unit: str) -> tuple[Path, tuple, Path]:
+    source, flags = UNITS[unit]
     src = _CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{src.stem}_{digest}.so"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        NVCC_FLAGS + flags).encode()).hexdigest()[:16]
+    return src, flags, BUILD_DIR / f"{unit}_{digest}.so"
 
 
-def _start(src: Path, out: Path):
+def _start(src: Path, flags: tuple, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+                             str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     return proc, tmp
@@ -67,12 +77,12 @@ def _finish(src: Path, out: Path, proc, tmp: Path) -> None:
     os.replace(tmp, out)     # atomic: concurrent builders race harmlessly
 
 
-def build_all(sources=SOURCES) -> list[Path]:
-    """Compile every source not built yet, one nvcc each, all started
+def build_all(units=tuple(UNITS)) -> list[Path]:
+    """Compile every unit not built yet, one nvcc each, all started
     together; returns the libraries' paths in the order given."""
-    targets = [_target(s) for s in sources]
-    running = [(src, out, *_start(src, out)) for src, out in targets
-               if not out.exists()]
+    targets = [_target(u) for u in units]
+    running = [(src, out, *_start(src, flags, out))
+               for src, flags, out in targets if not out.exists()]
     try:
         for src, out, proc, tmp in running:
             _finish(src, out, proc, tmp)
@@ -81,19 +91,14 @@ def build_all(sources=SOURCES) -> list[Path]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return [out for _, out in targets]
+    return [out for _, _, out in targets]
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` into a shared library; returns its path."""
-    return build_all((source,))[0]
-
-
-def _load(source: str, signatures: dict, error_fn: str) -> ctypes.CDLL:
-    lib = _libs.get(source)
-    if lib is not None:
-        return lib
-    lib = ctypes.CDLL(str(build(source)))
+def bind(path, signatures: dict, error_fn: str) -> ctypes.CDLL:
+    """Load the shared library at ``path`` and declare its entries
+    (``signatures``: name -> argument types, each returning a CUDA error
+    code) and its error-string function."""
+    lib = ctypes.CDLL(str(path))
     for fn, argtypes in signatures.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
@@ -102,26 +107,41 @@ def _load(source: str, signatures: dict, error_fn: str) -> ctypes.CDLL:
     err.argtypes = [_I32]
     err.restype = ctypes.c_char_p
     lib.error_string = err
-    _libs[source] = lib
     return lib
 
 
-def load_kl_dual() -> ctypes.CDLL:
-    """The K1/K2 library (``csrc/kl_dual.cu``), built on first call."""
-    rows = [_P] * 5 + [_I64] * 8          # Hs, u, A, r, log_prior; strides
-    k1 = rows + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
-    k2 = rows + [_P] * 5 + [_I32] * 5 + [_F64, _I32, _I32, _P]
-    return _load("kl_dual.cu", {"kl_dual_fused_f32": k1,
-                                "kl_dual_fused_f64": k1,
-                                "kl_dual_fused_cert_f32": k2},
-                 "kl_dual_error_string")
+def _load(unit: str, signatures: dict, error_fn: str) -> ctypes.CDLL:
+    lib = _libs.get(unit)
+    if lib is None:
+        lib = _libs[unit] = bind(build_all((unit,))[0], signatures, error_fn)
+    return lib
+
+
+_ROWS = [_P] * 5 + [_I64] * 8             # Hs, u, A, r, log_prior; strides
+_K1 = _ROWS + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
+KL_DUAL_SIGNATURES = {
+    "kl_dual_fused_f32": _K1, "kl_dual_fused_f64": _K1,
+    "kl_dual_fused_cert_f32": (_ROWS + [_P] * 5 + [_I32] * 5
+                               + [_F64, _I32, _I32, _P])}
+_KL_DUAL_UNITS = {"kl_dual_fused_f32": "kl_dual_f32",
+                  "kl_dual_fused_f64": "kl_dual_f64",
+                  "kl_dual_fused_cert_f32": "kl_dual_cert"}
+
+
+def load_kl_dual(fn: str) -> ctypes.CDLL:
+    """The library that holds the K1/K2 entry ``fn`` (``csrc/kl_dual.cu``,
+    one library per entry); the three are built together on first call."""
+    unit = _KL_DUAL_UNITS[fn]
+    if unit not in _libs:
+        build_all(tuple(_KL_DUAL_UNITS.values()))
+    return _load(unit, {fn: KL_DUAL_SIGNATURES[fn]}, "kl_dual_error_string")
 
 
 def load_kl_barrier() -> ctypes.CDLL:
     """The K3 library (``csrc/kl_barrier.cu``), built on first call."""
     sig = ([_P] * 5 + [_I64] * 7 + [_P] * 4 + [_I32] * 6 + [_P]
            + [_F64] * 2 + [_P])
-    return _load("kl_barrier.cu", {"kl_barrier_fused_f32": sig,
+    return _load("kl_barrier", {"kl_barrier_fused_f32": sig,
                                    "kl_barrier_fused_f64": sig},
                  "kl_barrier_error_string")
 
@@ -129,7 +149,7 @@ def load_kl_barrier() -> ctypes.CDLL:
 def load_chol() -> ctypes.CDLL:
     """The K4 library (``csrc/chol.cu``), built on first call."""
     sig = [_P, _I64, _I64, _P, _I32, _I32, _P]
-    return _load("chol.cu", {"chol_batched_f32": sig,
+    return _load("chol", {"chol_batched_f32": sig,
                              "chol_batched_f64": sig},
                  "chol_error_string")
 

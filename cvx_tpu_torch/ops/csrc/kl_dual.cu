@@ -21,12 +21,29 @@
 // is a register butterfly (__shfl_xor_sync), with no shared memory and no
 // block barrier, and every lane then solves the small system redundantly
 // so that no broadcast is needed.  Many independent warps per SM (four per
-// block) hide one another's latency.  Each lane walks a strided slice of
-// the n lanes and masks the ragged edge itself, so nothing is padded.
-// Rows are re-read from global (L2) memory in each pass instead of held in
-// registers.  DIM is a template parameter, so the small-system algebra is
-// unrolled into registers; k is a runtime value, and per-coordinate code
-// tests it as a predicate (never as an index) to keep arrays in registers.
+// block) hide one another's latency.  Lane l owns the coordinates i = 32 c
+// + l and masks the ragged edge itself, so nothing is padded.  DIM is a
+// template parameter, so the small-system algebra is unrolled into
+// registers; where k is a runtime value (the streamed path below),
+// per-coordinate code tests it as a predicate (never as an index) to keep
+// arrays in registers.
+//
+// Two paths over the coordinates, chosen by shape in the C launchers
+// (held_shape).  Held (template parameter NC = kHeldNC > 0): f32 rows, dual
+// dim <= kHeldMaxDim, no extra equality rows and n <= 32 NC, which covers
+// the main shape n = 100, dim 3.  A lane loads the rows and the log prior
+// of its NC coordinates once, before the step loop, and keeps them in
+// registers; each pass is a fully unrolled loop over c < NC with no load
+// and no address arithmetic in it, pass 2 reuses pass 1's y = exp(-B'z - 1
+// + lp), the epilogues compute their exp once, and k = DIM - 1 is a
+// compile-time value.  A lane skips a coordinate past n.  Streamed (NC =
+// 0; every other shape): each pass walks i0 = 0, 32, ... with a runtime
+// trip count and re-reads the rows from global (L2) memory.  Both paths
+// add a lane's coordinates in the same order (c ascending) through the
+// same expressions, so they give the same bits.  At the main shape the
+// held kernel keeps the SMs' instruction schedulers busy most of the
+// time: what is left to gain there is fewer instructions, not shorter
+// chains.
 //
 // Numerics follow the reference: IEEE exp/log/div/sqrt (no fast math, no
 // flush to zero), NaN-propagating min/max like jnp.maximum, and the same
@@ -42,7 +59,9 @@
 // Interface: plain C, pointers and element strides; the lane axis is
 // contiguous, the batch and row strides are free (0 for a shared,
 // expanded matrix).  Each entry launches on the given stream and returns
-// cudaGetLastError().
+// cudaGetLastError().  KL_DUAL_ENTRY = 1, 2 or 3 builds only
+// kl_dual_fused_f32, kl_dual_fused_f64 or kl_dual_fused_cert_f32, so that
+// three compilers can share the template instances; unset, all three.
 
 #include <cuda_runtime.h>
 
@@ -53,6 +72,9 @@ namespace {
 
 constexpr int kMaxLs = 8;          // line-search levels with accumulators
 constexpr int kWarpsPerBlock = 4;  // instances per block
+constexpr int kHeldNC = 4;         // coordinates a lane holds (n <= 32 NC)
+constexpr int kHeldMaxDim = 8;     // widest dual dim with a held path
+constexpr int kCopyMaxDim = 5;     // newton_z copies w, z up to this dim
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Lim;
@@ -115,19 +137,27 @@ template <typename R, typename LP> struct Rows {
 };
 
 // h[j] = B[j, i] (h[k] = 1 exactly) and the log prior at lane i
-template <int DIM, typename T, typename R, typename LP>
-__device__ __forceinline__ void load_lane(const Rows<R, LP>& P, int i,
-                                          T (&h)[DIM], T& lp) {
+template <int DIM, typename TH, typename TL, typename R, typename LP>
+__device__ __forceinline__ void load_lane(const Rows<R, LP>& P, int k, int i,
+                                          TH (&h)[DIM], TL& lp) {
 #pragma unroll
   for (int j = 0; j < DIM; ++j) {
-    if (j < P.k)
-      h[j] = T(P.H[j * P.sHk + i]);
-    else if (j == P.k)
-      h[j] = T(1);
+    if (j < k)
+      h[j] = TH(P.H[j * P.sHk + i]);
+    else if (j == k)
+      h[j] = TH(1);
     else
-      h[j] = T(P.A[(j - P.k - 1) * P.sAm + i]);
+      h[j] = TH(P.A[(j - k - 1) * P.sAm + i]);
   }
-  lp = T(P.logp[i]);
+  lp = TL(P.logp[i]);
+}
+
+// The number of inequality rows.  The held path takes no extra equality
+// rows (the launchers see to it), so there k = DIM - 1 at compile time:
+// the tests on k fold away and row k, exactly 1, costs no register.
+template <int DIM, int NC, typename R, typename LP>
+__device__ __forceinline__ int rows_k(const Rows<R, LP>& P) {
+  return NC > 0 ? DIM - 1 : P.k;
 }
 
 // (B'v)_i = v[k] + sum_{j != k} v[j] h[j], in the reference's order
@@ -151,6 +181,71 @@ __device__ __forceinline__ T pick(const T (&v)[DIM], int k) {
   for (int j = 0; j < DIM; ++j)
     if (j == k) out = v[j];
   return out;
+}
+
+// y_i = p_i exp(-(B'z)_i - 1)
+template <int DIM, typename T>
+__device__ __forceinline__ T y_of(const T (&z)[DIM], const T (&h)[DIM],
+                                  int k, T lp) {
+  return kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
+}
+
+// A lane's coordinates i = 32 c + lane, c < NC, held in registers: the
+// rows as TH and the log prior as TL (unset past n).  NC = 0 holds nothing.
+template <int DIM, int NC, typename TH, typename TL> struct Held {
+  TH h[NC][DIM];
+  TL lp[NC];
+};
+template <int DIM, typename TH, typename TL> struct Held<DIM, 0, TH, TL> {};
+
+template <int DIM, int NC, typename TH, typename TL, typename R, typename LP>
+__device__ __forceinline__ void hold(const Rows<R, LP>& P, int lane,
+                                     Held<DIM, NC, TH, TL>& S) {
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = 32 * c + lane;
+      if (i < P.n) load_lane<DIM>(P, DIM - 1, i, S.h[c], S.lp[c]);
+    }
+  }
+}
+
+// body(h, lp, c, i) in T for each of the lane's coordinates i < n, c
+// ascending.  Held: unrolled over c < NC.  Streamed: a runtime loop that
+// loads the rows, and c is 0.
+template <int DIM, int NC, typename T, typename TH, typename TL, typename R,
+          typename LP, typename F>
+__device__ __forceinline__ void each_coord(const Rows<R, LP>& P, int lane,
+                                           const Held<DIM, NC, TH, TL>& S,
+                                           F&& body) {
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int i = 32 * c + lane;
+      if (i >= P.n) continue;
+      T h[DIM];
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) h[j] = T(S.h[c][j]);
+      body(h, T(S.lp[c]), c, i);
+    }
+  } else {
+    for (int i0 = 0; i0 < P.n; i0 += 32) {  // same trip count on every lane
+      const int i = i0 + lane;
+      if (i >= P.n) continue;
+      T h[DIM], lp;
+      load_lane<DIM>(P, P.k, i, h, lp);
+      body(h, lp, 0, i);
+    }
+  }
+}
+
+// a if C else b, as a reference (the two may differ in const)
+template <bool C, typename A, typename B>
+__device__ __forceinline__ auto& ref_if(A& a, B& b) {
+  if constexpr (C)
+    return a;
+  else
+    return b;
 }
 
 // projected-gradient norm^2 (lam at 0 wanting to decrease dropped)
@@ -237,12 +332,26 @@ __device__ __forceinline__ bool solve_small(const T (&m)[DIM * (DIM + 1) / 2],
 // _newton_z, pallas_kl_dual.py:245-486), one warp per instance.
 // __noinline__: inlined into the K2 kernel, nvcc 12.9 (-O3, sm_90a) built
 // a kernel whose f32 phase never moved z (its w read as NaN), while the
-// same code inlined into K1 was right; a call boundary fixes it.
-template <int DIM, typename T, typename R, typename LP>
-__device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
-                         T (&z)[DIM], int n_steps, T z0, int n_ls, int lane) {
+// same code inlined into K1 was right; a call boundary fixes it.  w and z
+// cross that boundary in memory, so up to dim kCopyMaxDim the loop works
+// on copies in registers (a wider dual has no registers to spare); the
+// held rows are loaded on this side of it.
+template <int DIM, int NC, typename T, typename R, typename LP>
+__device__ __noinline__ void newton_z(const Rows<R, LP>& P,
+                                      const T (&w_in)[DIM], T (&z_out)[DIM],
+                                      int n_steps, T z0, int n_ls, int lane) {
   constexpr int NP = DIM * (DIM + 1) / 2;
-  const int k = P.k, n = P.n;
+  constexpr bool copy = DIM <= kCopyMaxDim;
+  const int k = rows_k<DIM, NC>(P);
+  Held<DIM, NC, T, T> S;
+  hold<DIM, NC>(P, lane, S);
+  T w_copy[DIM], z_copy[DIM];
+  const T(&w)[DIM] = ref_if<copy>(w_copy, w_in);
+  T(&z)[DIM] = ref_if<copy>(z_copy, z_out);
+  if constexpr (copy) {
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) w_copy[j] = w_in[j];
+  }
   const T eps = Lim<T>::eps(), tiny = Lim<T>::tiny();
   const T inf = T(INFINITY);
   const T max_e = T(0.9) * klog(Lim<T>::maxv());
@@ -258,12 +367,11 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
     for (int a = 0; a < DIM; ++a) s[a] = T(0);
 #pragma unroll
     for (int a = 0; a < NP; ++a) acc[a] = T(0);
-    for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-      const int i = i0 + lane;
-      if (i >= n) continue;
-      T h[DIM], lp;
-      load_lane<DIM>(P, i, h, lp);
-      const T y = kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
+    T ys[NC > 0 ? NC : 1];  // held: pass 1's y, reused by pass 2
+    each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c,
+                                           int) {
+      const T y = y_of<DIM>(z, h, k, lp);
+      if constexpr (NC > 0) ys[c] = y;
 #pragma unroll
       for (int a = 0; a < DIM; ++a) {
         const T ya = y * h[a];
@@ -271,7 +379,7 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
 #pragma unroll
         for (int b = a; b < DIM; ++b) acc[pidx<DIM>(a, b)] += ya * h[b];
       }
-    }
+    });
 #pragma unroll
     for (int a = 0; a < DIM; ++a) s[a] = warp_sum(s[a]);
 #pragma unroll
@@ -353,12 +461,13 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
 #pragma unroll
     for (int j = 0; j < DIM; ++j) gs[j] = T(0);
     T cmax = -inf, spr = T(0);
-    for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-      const int i = i0 + lane;
-      if (i >= n) continue;
-      T h[DIM], lp;
-      load_lane<DIM>(P, i, h, lp);
-      const T y = kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
+    each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c,
+                                           int) {
+      T y;
+      if constexpr (NC > 0)
+        y = ys[c];
+      else
+        y = y_of<DIM>(z, h, k, lp);
       const T wdir = bt_of<DIM>(dz, h, k);
       const T e = neg_tdeep * wdir;
       cmax = jmax(cmax, e);
@@ -370,12 +479,11 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
           efac = efac * efac;
         }
       }
-      const T ys = y * kexp(jclip(neg_tstar * wdir, -max_e, max_e));
+      const T ystar = y * kexp(jclip(neg_tstar * wdir, -max_e, max_e));
 #pragma unroll
-      for (int j = 0; j < DIM; ++j) gs[j] += h[j] * ys;
-      if constexpr (DIM > 8)
-        spr += kexp(-bt_of<DIM>(zpr, h, k) - T(1) + lp);
-    }
+      for (int j = 0; j < DIM; ++j) gs[j] += h[j] * ystar;
+      if constexpr (DIM > 8) spr += y_of<DIM>(zpr, h, k, lp);
+    });
 #pragma unroll
     for (int l = 0; l < kMaxLs; ++l)
       if (l < n_ls) ls[l] = warp_sum(ls[l]);
@@ -449,6 +557,10 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P, const T (&w)[DIM],
 #pragma unroll
     for (int j = 0; j < DIM; ++j) z[j] = zn[j];
   }
+  if constexpr (copy) {
+#pragma unroll
+    for (int j = 0; j < DIM; ++j) z_out[j] = z_copy[j];
+  }
 }
 
 template <int DIM, typename T>
@@ -468,7 +580,7 @@ __device__ __forceinline__ void load_w(const T* u, long long sub,
 }
 
 // K1: the solve, then x = y / sum(y) and the measured gap f(x) - g(z)
-template <int DIM, typename T>
+template <int DIM, int NC, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
                const T* __restrict__ A, const T* __restrict__ r,
@@ -476,23 +588,25 @@ kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
                long long sub, long long suk, long long sAb, long long sAm,
                long long srb, long long srm, T* __restrict__ x,
                T* __restrict__ gap, T* __restrict__ zout, int B, int n,
-               int k, int n_steps, T z0, int n_ls) {
+               int k_rows, int n_steps, T z0, int n_ls) {
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (b >= B) return;
-  const Rows<T, T> P{H + b * sHb, sHk, A + b * sAb, sAm, logp, n, k};
+  const Rows<T, T> P{H + b * sHb, sHk, A + b * sAb, sAm, logp, n, k_rows};
+  const int k = rows_k<DIM, NC>(P);
   T w[DIM], z[DIM];
   load_w<DIM>(u, sub, suk, r, srb, srm, b, k, w);
-  newton_z<DIM>(P, w, z, n_steps, z0, n_ls, lane);
+  newton_z<DIM, NC>(P, w, z, n_steps, z0, n_ls, lane);
 
+  Held<DIM, NC, T, T> S;
+  hold<DIM, NC>(P, lane, S);
+  T ys[NC > 0 ? NC : 1];  // held: the exp serves sum(y) and x
   T sy = T(0);
-  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-    const int i = i0 + lane;
-    if (i >= n) continue;
-    T h[DIM], lp;
-    load_lane<DIM>(P, i, h, lp);
-    sy += kexp(-bt_of<DIM>(z, h, k) - T(1) + lp);
-  }
+  each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c, int) {
+    const T y = y_of<DIM>(z, h, k, lp);
+    if constexpr (NC > 0) ys[c] = y;
+    sy += y;
+  });
   sy = warp_sum(sy);
   // sum(y) underflowed to 0 (the unbounded dual of an infeasible
   // instance): the gap is +inf instead of NaN
@@ -500,15 +614,17 @@ kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
   const T den = dead ? T(1) : sy;
   T fp = T(0);
   T* xb = x + (long long)b * n;
-  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-    const int i = i0 + lane;
-    if (i >= n) continue;
-    T h[DIM], lp;
-    load_lane<DIM>(P, i, h, lp);
-    const T xi = kexp(-bt_of<DIM>(z, h, k) - T(1) + lp) / den;
+  each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c,
+                                         int i) {
+    T y;
+    if constexpr (NC > 0)
+      y = ys[c];
+    else
+      y = y_of<DIM>(z, h, k, lp);
+    const T xi = y / den;
     xb[i] = xi;
     fp += xi * (klog(xi > T(0) ? xi : T(1)) - lp);
-  }
+  });
   fp = warp_sum(fp);
   if (lane == 0) {
     T val = sy;
@@ -522,12 +638,13 @@ kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
 
 // K2 polish: one warm projected-Newton step in f64 (_kl_warm_polish's
 // algebra; no step for a non-finite, sick or |dz| > 1e3 direction)
-template <int DIM>
+template <int DIM, int NC>
 __device__ void polish_step(const Rows<float, double>& P,
+                            const Held<DIM, NC, float, double>& S,
                             const double (&w)[DIM], double (&z)[DIM],
                             int lane) {
   constexpr int NP = DIM * (DIM + 1) / 2;
-  const int k = P.k, n = P.n;
+  const int k = rows_k<DIM, NC>(P);
   const double eps = DBL_EPSILON;
   const double max_e = 0.9 * log(DBL_MAX);
   double s[DIM], acc[NP];
@@ -535,11 +652,8 @@ __device__ void polish_step(const Rows<float, double>& P,
   for (int a = 0; a < DIM; ++a) s[a] = 0.0;
 #pragma unroll
   for (int a = 0; a < NP; ++a) acc[a] = 0.0;
-  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-    const int i = i0 + lane;
-    if (i >= n) continue;
-    double h[DIM], lp;
-    load_lane<DIM>(P, i, h, lp);
+  each_coord<DIM, NC, double>(P, lane, S, [&](const double(&h)[DIM],
+                                              double lp, int, int) {
     const double y =
         exp(jclip(-bt_of<DIM>(z, h, k) - 1.0 + lp, -max_e, max_e));
 #pragma unroll
@@ -549,7 +663,7 @@ __device__ void polish_step(const Rows<float, double>& P,
 #pragma unroll
       for (int b = a; b < DIM; ++b) acc[pidx<DIM>(a, b)] += ya * h[b];
     }
-  }
+  });
 #pragma unroll
   for (int a = 0; a < DIM; ++a) s[a] = warp_sum(s[a]);
 #pragma unroll
@@ -603,7 +717,7 @@ __device__ void polish_step(const Rows<float, double>& P,
 
 // K2: the K1 f32 solve, polish_steps f64 polish steps, and the f64
 // certificate (x, gap, ineq_res, eq_res) from one exp pass
-template <int DIM>
+template <int DIM, int NC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
                     const float* __restrict__ A, const float* __restrict__ r,
@@ -613,31 +727,38 @@ kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
                     long long srm, double* __restrict__ x,
                     double* __restrict__ zout, double* __restrict__ gap,
                     double* __restrict__ ineq, double* __restrict__ eq,
-                    int B, int n, int k, int n_steps, float z0, int n_ls,
-                    int polish_steps) {
+                    int B, int n, int k_rows, int n_steps, float z0,
+                    int n_ls, int polish_steps) {
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (b >= B) return;
-  const Rows<float, double> P{H + b * sHb, sHk, A + b * sAb, sAm, logp, n, k};
+  const Rows<float, double> P{H + b * sHb, sHk, A + b * sAb, sAm, logp, n,
+                              k_rows};
+  const int k = rows_k<DIM, NC>(P);
   float w32[DIM], z32[DIM];
   load_w<DIM>(u, sub, suk, r, srb, srm, b, k, w32);
-  newton_z<DIM>(P, w32, z32, n_steps, z0, n_ls, lane);
+  newton_z<DIM, NC>(P, w32, z32, n_steps, z0, n_ls, lane);
   double w[DIM], z[DIM];
 #pragma unroll
   for (int j = 0; j < DIM; ++j) {
     w[j] = double(w32[j]);
     z[j] = double(z32[j]);
   }
-  for (int s = 0; s < polish_steps; ++s) polish_step<DIM>(P, w, z, lane);
+  // held: the rows stay f32 (half the registers) and lift to f64, exactly,
+  // at each use
+  Held<DIM, NC, float, double> S;
+  hold<DIM, NC>(P, lane, S);
+  for (int s = 0; s < polish_steps; ++s)
+    polish_step<DIM, NC>(P, S, w, z, lane);
 
+  double ys[NC > 0 ? NC : 1];  // held: the exp serves sum(y) and x
   double sy = 0.0;
-  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-    const int i = i0 + lane;
-    if (i >= n) continue;
-    double h[DIM], lp;
-    load_lane<DIM>(P, i, h, lp);
-    sy += exp(-bt_of<DIM>(z, h, k) - 1.0 + lp);
-  }
+  each_coord<DIM, NC, double>(P, lane, S, [&](const double(&h)[DIM],
+                                              double lp, int c, int) {
+    const double y = y_of<DIM>(z, h, k, lp);
+    if constexpr (NC > 0) ys[c] = y;
+    sy += y;
+  });
   sy = warp_sum(sy);
   const bool dead = sy <= 0.0;
   const double den = dead ? 1.0 : sy;
@@ -645,19 +766,21 @@ kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
 #pragma unroll
   for (int j = 0; j < DIM; ++j) hx[j] = 0.0;
   double* xb = x + (long long)b * n;
-  for (int i0 = 0; i0 < n; i0 += 32) {  // same trip count on every lane
-    const int i = i0 + lane;
-    if (i >= n) continue;
-    double h[DIM], lp;
-    load_lane<DIM>(P, i, h, lp);
+  each_coord<DIM, NC, double>(P, lane, S, [&](const double(&h)[DIM],
+                                              double lp, int c, int i) {
     const double btz = bt_of<DIM>(z, h, k);
-    const double xi = exp(-btz - 1.0 + lp) / den;
+    double y;
+    if constexpr (NC > 0)
+      y = ys[c];
+    else
+      y = exp(-btz - 1.0 + lp);
+    const double xi = y / den;
     xb[i] = xi;
     xbtz += xi * btz;
 #pragma unroll
     for (int j = 0; j < DIM; ++j) hx[j] += xi * h[j];
     nmax = jmax(nmax, -xi);
-  }
+  });
   xbtz = warp_sum(xbtz);
 #pragma unroll
   for (int j = 0; j < DIM; ++j) hx[j] = warp_sum(hx[j]);
@@ -686,6 +809,14 @@ constexpr int kThreads = kWarpsPerBlock * 32;
 
 inline int blocks_for(int B) { return (B + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
+// Which path a shape takes.  Held: f32 rows, a dual dim with a held
+// instance, no extra equality rows (k = dim - 1) and an n of which a lane
+// can hold its share.  Everything else is streamed.
+template <int DIM> constexpr bool held_dim() { return DIM <= kHeldMaxDim; }
+inline bool held_shape(int dim, int k, int n) {
+  return k == dim - 1 && n <= 32 * kHeldNC;
+}
+
 template <typename T>
 cudaError_t launch_k1(int dim, const void* H, const void* u, const void* A,
                       const void* r, const void* logp, long long sHb,
@@ -694,12 +825,22 @@ cudaError_t launch_k1(int dim, const void* H, const void* u, const void* A,
                       long long srm, void* x, void* gap, void* z, int B,
                       int n, int k, int n_steps, double z0, int n_ls,
                       cudaStream_t stream) {
+  // K1 in f64 at 100+ registers gains nothing from holding its rows
+  constexpr bool held_type = sizeof(T) == sizeof(float);
+#define KL_K1_LAUNCH(D, NC)                                                  \
+  kl_dual_kernel<D, NC, T><<<blocks_for(B), kThreads, 0, stream>>>(          \
+      (const T*)H, (const T*)u, (const T*)A, (const T*)r, (const T*)logp,    \
+      sHb, sHk, sub, suk, sAb, sAm, srb, srm, (T*)x, (T*)gap, (T*)z, B, n,   \
+      k, n_steps, T(z0), n_ls)
 #define KL_K1_CASE(D)                                                        \
   case D:                                                                    \
-    kl_dual_kernel<D, T><<<blocks_for(B), kThreads, 0, stream>>>(            \
-        (const T*)H, (const T*)u, (const T*)A, (const T*)r, (const T*)logp,  \
-        sHb, sHk, sub, suk, sAb, sAm, srb, srm, (T*)x, (T*)gap, (T*)z, B, n, \
-        k, n_steps, T(z0), n_ls);                                            \
+    if constexpr (held_dim<D>() && held_type) {                              \
+      if (held_shape(D, k, n)) {                                             \
+        KL_K1_LAUNCH(D, kHeldNC);                                            \
+        break;                                                               \
+      }                                                                      \
+    }                                                                        \
+    KL_K1_LAUNCH(D, 0);                                                      \
     break;
   switch (dim) {
     KL_K1_CASE(2) KL_K1_CASE(3) KL_K1_CASE(4) KL_K1_CASE(5) KL_K1_CASE(6)
@@ -710,13 +851,19 @@ cudaError_t launch_k1(int dim, const void* H, const void* u, const void* A,
       return cudaErrorInvalidValue;
   }
 #undef KL_K1_CASE
+#undef KL_K1_LAUNCH
   return cudaGetLastError();
 }
 
 }  // namespace
 
+#ifndef KL_DUAL_ENTRY
+#define KL_DUAL_ENTRY 0
+#endif
+
 extern "C" {
 
+#if KL_DUAL_ENTRY == 0 || KL_DUAL_ENTRY == 1
 int kl_dual_fused_f32(const void* H, const void* u, const void* A,
                       const void* r, const void* logp, long long sHb,
                       long long sHk, long long sub, long long suk,
@@ -730,6 +877,9 @@ int kl_dual_fused_f32(const void* H, const void* u, const void* A,
                           z0, n_ls, (cudaStream_t)stream);
 }
 
+#endif
+
+#if KL_DUAL_ENTRY == 0 || KL_DUAL_ENTRY == 2
 int kl_dual_fused_f64(const void* H, const void* u, const void* A,
                       const void* r, const void* logp, long long sHb,
                       long long sHk, long long sub, long long suk,
@@ -743,6 +893,9 @@ int kl_dual_fused_f64(const void* H, const void* u, const void* A,
                            n_steps, z0, n_ls, (cudaStream_t)stream);
 }
 
+#endif
+
+#if KL_DUAL_ENTRY == 0 || KL_DUAL_ENTRY == 3
 int kl_dual_fused_cert_f32(const void* H, const void* u, const void* A,
                            const void* r, const void* logp, long long sHb,
                            long long sHk, long long sub, long long suk,
@@ -753,13 +906,21 @@ int kl_dual_fused_cert_f32(const void* H, const void* u, const void* A,
                            int polish_steps, void* stream) {
   if (n_ls < 1 || n_ls > kMaxLs) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+#define KL_K2_LAUNCH(D, NC)                                                 \
+  kl_dual_cert_kernel<D, NC><<<blocks_for(B), kThreads, 0, st>>>(           \
+      (const float*)H, (const float*)u, (const float*)A, (const float*)r,   \
+      (const double*)logp, sHb, sHk, sub, suk, sAb, sAm, srb, srm,          \
+      (double*)x, (double*)z, (double*)gap, (double*)ineq, (double*)eq, B,  \
+      n, k, n_steps, float(z0), n_ls, polish_steps)
 #define KL_K2_CASE(D)                                                       \
   case D:                                                                   \
-    kl_dual_cert_kernel<D><<<blocks_for(B), kThreads, 0, st>>>(             \
-        (const float*)H, (const float*)u, (const float*)A, (const float*)r, \
-        (const double*)logp, sHb, sHk, sub, suk, sAb, sAm, srb, srm,        \
-        (double*)x, (double*)z, (double*)gap, (double*)ineq, (double*)eq,   \
-        B, n, k, n_steps, float(z0), n_ls, polish_steps);                   \
+    if constexpr (held_dim<D>()) {                                          \
+      if (held_shape(D, k, n)) {                                            \
+        KL_K2_LAUNCH(D, kHeldNC);                                           \
+        break;                                                              \
+      }                                                                     \
+    }                                                                       \
+    KL_K2_LAUNCH(D, 0);                                                     \
     break;
   switch (k + 1 + m_eq) {
     KL_K2_CASE(2) KL_K2_CASE(3) KL_K2_CASE(4) KL_K2_CASE(5) KL_K2_CASE(6)
@@ -770,8 +931,11 @@ int kl_dual_fused_cert_f32(const void* H, const void* u, const void* A,
       return cudaErrorInvalidValue;
   }
 #undef KL_K2_CASE
+#undef KL_K2_LAUNCH
   return cudaGetLastError();
 }
+
+#endif
 
 const char* kl_dual_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -34,7 +34,10 @@ Layout: ``Hs`` (B, k, n), ``u`` (B, k), ``A`` (B, mE, n), ``r`` (B, mE),
 ``log_prior`` (n,) shared; dual dim = k + 1 + mE <= 16 and k + mE >= 1.
 The kernels take any batch and row stride for ``Hs``/``A`` (a stride-0
 ``expand`` of one shared matrix is read in place) and any strides for
-``u``/``r``; the lane axis n must be contiguous.
+``u``/``r``; the lane axis n must be contiguous.  The C launchers pick the
+kernel's path by shape: f32 rows with dual dim <= 8, mE = 0 and n <= 128
+are held in registers through the solve, every other shape is streamed
+from L2 in each pass; the two give the same bits.
 """
 
 from __future__ import annotations
@@ -576,7 +579,7 @@ def _kernel_args(name, dtype, tensors, log_prior, lp_dtype):
 
 
 def _launch(fn, name, dev, *args):
-    _build.launch(_build.load_kl_dual(), fn, name, dev, *args)
+    _build.launch(_build.load_kl_dual(fn), fn, name, dev, *args)
 
 
 def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,

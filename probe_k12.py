@@ -1,0 +1,390 @@
+"""Variants of K1 and K2 (``cvx_tpu_torch/ops/csrc/kl_dual.cu``) on one
+NVIDIA GPU: registers, bits and times.
+
+Builds the committed source, an earlier copy if one is given, and
+text-substituted variants of the committed source (``newton_z`` inlined;
+the held path up to dual dim 4 only; ``newton_z``'s register copies of w and z
+for no dim and for every dim; ``kWarpsPerBlock`` in {2, 8};
+``__launch_bounds__(kThreads, m)`` on every kernel and on K2 alone; and
+``nobfly``, whose warp reductions are cut out, so that its results are wrong
+and only its time is read: what the butterflies cost), each with
+``_build.NVCC_FLAGS`` plus ``-Xptxas -v``, one nvcc each, all started
+together, into ``_probe/build`` (gitignored).  A probe build keeps only
+the dual dims of ``--dims`` (default 2 to 9 and 16: those of the cases
+below) so that a round stays short.  Prints the registers, spill and stack
+of every kernel instance and of every ``newton_z`` behind its call
+boundary; holds every variant to the baseline (else to the committed
+kernel) bit for bit on all outputs of K1 (x, gap, z; f32 and f64) and K2
+(x, z, gap, ineq_res, eq_res) on every case of ``chip_smoke.dual_cases``,
+and the committed kernel to its plain version (exit code 1 if the committed
+source differs from the baseline); with ``--time`` times K1
+f32, K2 and K1 f64 at 10,000 x n = 100 (dim 3, 16 steps), and K1 f32 and
+K2 on other shapes either side of the dispatch, with CUDA events, in turns
+(forward, then backward); with ``--sass`` counts the SASS instructions of
+the Newton step loop of K1 f32 at dim 3 in the committed and baseline
+builds (``cuobjdump -sass``).
+
+    python3 probe_k12.py [--baseline OLD.cu] [--time] [--sass] [--dims 3,4] [--only a,b] [--out DIR]
+
+The baseline is any earlier version of ``kl_dual.cu`` with the same C
+interface, e.g. ``git show <commit>:cvx_tpu_torch/ops/csrc/kl_dual.cu``.
+Needs a CUDA device and nvcc; writes nvcc's full reports to
+``DIR/ptxas_<variant>.txt`` (default ``_probe/build``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from chip_smoke import bench_family, dual_cases, random_family
+from cvx_tpu_torch.ops import _build
+from cvx_tpu_torch.ops import kl_dual as kd
+
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "_probe" / "build"
+CASE = re.compile(r"KL_K[12]_CASE\((\d+)\)")
+SCHEDULE = dict(n_steps=16, z0=1e-3, n_ls=5)
+
+
+_LOG = []
+
+
+def say(*parts):
+    """print, and keep the line for ``DIR/log.txt``."""
+    line = " ".join(str(p) for p in parts)
+    print(line, flush=True)
+    _LOG.append(line)
+
+
+def substitute(src, old, new):
+    assert src.count(old) >= 1, old
+    return src.replace(old, new)
+
+
+def variants(baseline, dims, only):
+    src = (ROOT / "cvx_tpu_torch/ops/csrc/kl_dual.cu").read_text()
+    out = {"committed": src}
+    if baseline:
+        out["baseline"] = Path(baseline).read_text()
+    out["inline"] = substitute(src, "__device__ __noinline__ void newton_z",
+                               "__device__ __forceinline__ void newton_z")
+    out["dim4"] = substitute(src, "constexpr int kHeldMaxDim = 8;",
+                             "constexpr int kHeldMaxDim = 4;")
+    for d in (0, 16):
+        out[f"copy{d}"] = substitute(src, "constexpr int kCopyMaxDim = 5;",
+                                     f"constexpr int kCopyMaxDim = {d};")
+    for w in (2, 8):
+        out[f"W{w}"] = substitute(src, "constexpr int kWarpsPerBlock = 4;",
+                                  f"constexpr int kWarpsPerBlock = {w};")
+    bounds = "__launch_bounds__(kWarpsPerBlock * 32)"
+    assert src.count(bounds) == 2       # K1's, then K2's
+    for m in (6, 8):
+        out[f"M{m}"] = src.replace(bounds, bounds[:-1] + f", {m})")
+        k1, k2 = src.split(bounds, 1)[0], src.split(bounds, 1)[1]
+        out[f"K2M{m}"] = k1 + bounds + k2.replace(bounds,
+                                                  bounds[:-1] + f", {m})")
+    out["nobfly"] = substitute(src, "for (int o = 16; o > 0; o >>= 1)",
+                               "for (int o = 16; o > 16; o >>= 1)")
+    if only:
+        out = {k: v for k, v in out.items()
+               if k in only or k in ("committed", "baseline")}
+    if dims:
+        out = {k: CASE.sub(lambda m: m[0] if int(m[1]) in dims else "", v)
+               for k, v in out.items()}
+    return out
+
+
+def parse_ptxas(report):
+    """{"K1 f dim=3 NC=4": {"regs": r, "spill": "stores/loads", "stack":
+    s}, ...}; a ``newton_z`` behind its call boundary has no register
+    count of its own."""
+    names = ((r"kl_dual_kernelILi(\d+)ELi(\d+)E([fd])",
+              lambda m: f"K1 {m[3]} dim={m[1]} NC={m[2]}"),
+             (r"kl_dual_cert_kernelILi(\d+)ELi(\d+)EE",
+              lambda m: f"K2 dim={m[1]} NC={m[2]}"),
+             (r"newton_zILi(\d+)ELi(\d+)E([fd])f?([fd])",
+              lambda m: f"newton_z {m[3]} dim={m[1]} NC={m[2]} lp={m[4]}"),
+             # an earlier source: no NC parameter
+             (r"kl_dual_kernelILi(\d+)E([fd])",
+              lambda m: f"K1 {m[2]} dim={m[1]}"),
+             (r"kl_dual_cert_kernelILi(\d+)EE", lambda m: f"K2 dim={m[1]}"),
+             (r"newton_zILi(\d+)E([fd])f?([fd])",
+              lambda m: f"newton_z {m[2]} dim={m[1]} lp={m[3]}"))
+    res, cur = {}, None
+    for line in report.splitlines():
+        if "Function properties for" in line or "Compiling entry" in line:
+            cur = None
+            for pat, label in names:
+                m = re.search(pat, line)
+                if m:
+                    cur = res.setdefault(label(m), {})
+                    break
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["stack"], cur["spill"] = int(m[1]), f"{m[2]}/{m[3]}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["regs"] = int(m[1])
+    return res
+
+
+def build(srcs, out):
+    BUILD.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in srcs.items():
+        cu = BUILD / f"{name}.cu"
+        cu.write_text(src)
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(BUILD / f"{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (t0, proc) in procs.items():
+        report, _ = proc.communicate()
+        (out / f"ptxas_{name}.txt").write_text(report)
+        if proc.returncode:
+            say(f"nvcc FAILED on {name}:\n{report[-3000:]}")
+            continue
+        say(f"ptxas {name} (done {time.perf_counter() - t0:.0f} s after "
+              "the start)", json.dumps(parse_ptxas(report), sort_keys=True))
+        libs[name] = _build.bind(BUILD / f"{name}.so",
+                                 _build.KL_DUAL_SIGNATURES,
+                                 "kl_dual_error_string")
+    return libs
+
+
+def sass_step_loop(so, kernel):
+    """Instructions of the largest loop (a backward branch and its span)
+    in the SASS of the function whose mangled name holds ``kernel``:
+    (total, {opcode: count}); ``newton_z`` behind its call boundary is
+    listed inside the kernel that calls it."""
+    sass = subprocess.run(
+        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
+        capture_output=True, text=True, check=True).stdout
+    best = (0, {})
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel not in fn.split("\n", 1)[0]:
+            continue
+        ins = [(int(m[1], 16), m[2], m[3]) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)[.\w]*"
+            r"(.*?);", fn)]
+        for addr, op, rest in ins:
+            t = re.search(r"0x([0-9a-f]+)", rest)
+            if op == "BRA" and t and int(t[1], 16) < addr:
+                body = [o for a, o, _ in ins if int(t[1], 16) <= a <= addr]
+                if len(body) > best[0]:
+                    ops = {o: body.count(o) for o in sorted(set(body))}
+                    best = (len(body), ops)
+    return best
+
+
+def run_k1(lib, Hs, u, A=None, r=None):
+    """``kl_dual_fused`` on the library ``lib``: (x, gap, z)."""
+    A, r = kd._check_args("kl_dual_fused", Hs, u, A, r, None,
+                          n_steps=SCHEDULE["n_steps"], n_ls=SCHEDULE["n_ls"])
+    B, k, n = Hs.shape
+    dt, dev = Hs.dtype, Hs.device
+    lp = kd._uniform_log_prior(n, dt, dev)
+    strides = kd._kernel_args("kl_dual_fused", dt, (Hs, u, A, r), lp, dt)
+    x = torch.empty((B, n), dtype=dt, device=dev)
+    gap = torch.empty((B,), dtype=dt, device=dev)
+    z = torch.empty((B, k + 1 + A.shape[1]), dtype=dt, device=dev)
+    p = _build.ptr
+    _build.launch(lib, "kl_dual_fused_f32" if dt == torch.float32
+                  else "kl_dual_fused_f64", "probe_k12", dev, p(Hs), p(u),
+                  p(A), p(r), p(lp), *strides, p(x), p(gap), p(z), B, n, k,
+                  A.shape[1], SCHEDULE["n_steps"], SCHEDULE["z0"],
+                  SCHEDULE["n_ls"])
+    return x, gap, z
+
+
+def run_k2(lib, Hs, u, A=None, r=None, polish_steps=2):
+    """``kl_dual_fused_cert`` on ``lib``: (x, z, gap, ineq_res, eq_res)."""
+    A, r = kd._check_args("kl_dual_fused_cert", Hs, u, A, r, None,
+                          n_steps=SCHEDULE["n_steps"], n_ls=SCHEDULE["n_ls"],
+                          polish_steps=polish_steps)
+    B, k, n = Hs.shape
+    dev = Hs.device
+    lp = kd._uniform_log_prior(n, torch.float64, dev)
+    strides = kd._kernel_args("kl_dual_fused_cert", torch.float32,
+                              (Hs, u, A, r), lp, torch.float64)
+    f64 = dict(dtype=torch.float64, device=dev)
+    x = torch.empty((B, n), **f64)
+    z = torch.empty((B, k + 1 + A.shape[1]), **f64)
+    gap, ineq, eq = (torch.empty((B,), **f64) for _ in range(3))
+    p = _build.ptr
+    _build.launch(lib, "kl_dual_fused_cert_f32", "probe_k12", dev, p(Hs),
+                  p(u), p(A), p(r), p(lp), *strides, p(x), p(z), p(gap),
+                  p(ineq), p(eq), B, n, k, A.shape[1], SCHEDULE["n_steps"],
+                  SCHEDULE["z0"], SCHEDULE["n_ls"], polish_steps)
+    return x, z, gap, ineq, eq
+
+
+def same_bits(got, ref):
+    """Every tensor of ``got`` equal to ``ref``'s, NaN in the same
+    places (inf compares equal to itself)."""
+    for a, b in zip(got, ref):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if not (torch.equal(na, nb) and torch.equal(a[~na], b[~nb])):
+            return False
+    return True
+
+
+def max_abs(d, lanes):
+    return float(d[lanes].abs().max()) if lanes.any() else 0.0
+
+
+def doubled(args):
+    return tuple(None if a is None else a.double() for a in args)
+
+
+def time_cases(dev):
+    """(name, kernels to time, args): the main shape first, then shapes
+    either side of the dispatch (n for the held path, dual dim)."""
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    out = []
+    for n in (100, 24, 77, 128, 200):
+        H, U = bench_family(10000, n, seed=0)
+        out.append((f"10000 x n={n} dim 3",
+                    ("K1", "K2", "K1f64") if n == 100 else ("K1", "K2"),
+                    (t(H)[None].expand(10000, -1, -1), t(U), None, None)))
+    for k, m_eq in ((1, 0), (2, 1), (3, 0), (4, 0), (7, 0), (8, 0), (15, 0)):
+        H, U, A, R = random_family(k, m_eq, 100, 10000)
+        out.append((f"10000 x n=100 dim {k + 1 + m_eq}", ("K1", "K2"),
+                    (t(H)[None].expand(10000, -1, -1), t(U),
+                     t(A)[None].expand(10000, -1, -1) if m_eq else None,
+                     t(R.copy()) if m_eq else None)))
+    for n, B in ((1000, 1000), (10000, 100)):
+        H, U = bench_family(B, n, seed=0)
+        out.append((f"{B} x n={n} dim 3", ("K1", "K2"),
+                    (t(H)[None].expand(B, -1, -1), t(U), None, None)))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", help="an earlier kl_dual.cu")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--dims", default="2,3,4,5,6,7,8,9,16",
+                    help="dual dims a probe build keeps ('all' for 2-16)")
+    ap.add_argument("--only", default="",
+                    help="variants to build beside committed and baseline")
+    ap.add_argument("--out", type=Path, default=BUILD,
+                    help="directory for nvcc's reports")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("probe_k12: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    dims = (None if args.dims == "all"
+            else {int(d) for d in args.dims.split(",")})
+    t0 = time.perf_counter()
+    libs = build(variants(args.baseline, dims,
+                          set(args.only.split(",")) - {""}), args.out)
+    say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
+    ref_name = "baseline" if "baseline" in libs else "committed"
+    if args.sass:
+        for name, key in (("committed", "kl_dual_kernelILi3ELi4EfEE"),
+                          ("baseline", "kl_dual_kernelILi3EfEE")):
+            if name in libs:
+                total, ops = sass_step_loop(BUILD / f"{name}.so", key)
+                say(f"sass {name} K1 f32 dim 3 step loop: {total} "
+                    f"instructions {json.dumps(ops)}")
+
+    differing = set()
+    for cname, *a in dual_cases(dev):
+        dim = a[0].shape[1] + 1 + (a[2].shape[1] if a[2] is not None else 0)
+        if dims and dim not in dims:
+            say(f"{cname}: dim {dim} not built")
+            continue
+        runs = {"K1": (run_k1, a), "K2": (run_k2, a),
+                "K1f64": (run_k1, doubled(a))}
+        xk, gk, zk = run_k1(libs["committed"], *a)
+        xp, gp, zp = kd.kl_dual_fused_plain(*a)
+        x2, _, g2, _, _ = run_k2(libs["committed"], *a)
+        xq, _, gq, _, _ = kd.kl_dual_fused_cert_plain(*a)
+        live, cert = torch.isfinite(gp), torch.isfinite(gq) & (gq.abs() <= 1e-8)
+        line = [f"{cname}: committed - plain max|dx| K1 "
+                f"{max_abs(xk - xp, live):.3e} (z moved: "
+                f"{bool((zk != SCHEDULE['z0']).any())}), K2 "
+                f"{max_abs(x2 - xq, cert):.3e} on "
+                f"{int(cert.sum())}/{len(gq)} certified, K2 gap NaN "
+                f"{int(torch.isnan(g2).sum())}"]
+        refs = {kname: fn(libs[ref_name], *ka)
+                for kname, (fn, ka) in runs.items()}
+        for name, lib in libs.items():
+            if name in (ref_name, "nobfly"):
+                continue
+            bad = []
+            for kname, (fn, ka) in runs.items():
+                got = fn(lib, *ka)
+                if not same_bits(got, refs[kname]):
+                    dx = (got[0] - refs[kname][0]).nan_to_num().abs().max()
+                    bad.append(f"{kname} (max|dx| {float(dx):.1e})")
+            if bad:
+                differing.add(name)
+            line.append(f"{name} " + ("same bits" if not bad
+                                      else "DIFFERS in " + ", ".join(bad)))
+        say(" | ".join(line))
+    # the exit code speaks for the committed source; a variant that
+    # differs (``inline`` does: nvcc 12.9 miscompiles it) is only reported
+    ok = "committed" not in differing
+    say(f"the committed source the same bits as {ref_name} on every output "
+        f"of K1 f32, K2 and K1 f64: {ok}; variants that differ: "
+        f"{sorted(differing - {'committed'}) or 'none'}")
+    if not args.time:
+        (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+        return 0 if ok else 1
+
+    for cname, kernels, a in time_cases(dev):
+        dim = a[0].shape[1] + 1 + (a[2].shape[1] if a[2] is not None else 0)
+        if dims and dim not in dims:
+            continue
+        for kname in kernels:
+            fn, ka = {"K1": (run_k1, a), "K2": (run_k2, a),
+                      "K1f64": (run_k1, doubled(a))}[kname]
+            fns = {name: (lambda lib=lib: fn(lib, *ka))
+                   for name, lib in libs.items()}
+            end = time.perf_counter() + 0.5     # clocks up before the turns
+            while time.perf_counter() < end:
+                fns["committed"]()
+            torch.cuda.synchronize()
+            runs = {name: [] for name in fns}
+            for name in list(fns) + list(fns)[::-1]:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                fns[name]()
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(30):
+                    fns[name]()
+                stop.record()
+                torch.cuda.synchronize()
+                runs[name].append(start.elapsed_time(stop) / 30)
+            say(json.dumps({"case": cname, "kernel": kname, "card": smi,
+                              "ms": runs}))
+            say(f"time {kname} {cname}: " + ", ".join(
+                f"{name} {min(v):.4f}" for name, v in runs.items()))
+    (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -54,13 +54,36 @@ def _family(k, m_eq, n, B, seed=0):
     return H, U, A, np.broadcast_to(A @ x0, (B, m_eq))
 
 
+def _bench_family(n, B):
+    """bench.py's family: P(A) >= pA (|A| = 3), P(B) <= pB (upper half)."""
+    rng = np.random.default_rng(n)
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    I_B = np.zeros(n); I_B[n // 2:] = 1.0
+    U = np.column_stack([-rng.uniform(0.2, 0.5, B), rng.uniform(0.55, 0.8, B)])
+    return np.stack([-I_A, I_B]), U, np.zeros((0, n)), np.zeros((B, 0))
+
+
+# kl_dual.cu holds a lane's rows in registers for f32, dual dim <= 8, no
+# extra equality rows and n <= 128, and streams them otherwise: shapes
+# either side of each threshold, and large n
 @pytest.mark.timeout(600)
-@pytest.mark.parametrize("k,m_eq,dtype", [(2, 0, torch.float32),
-                                          (5, 2, torch.float32),
-                                          (13, 2, torch.float64)])
-def test_kernels_match_plain(dev, k, m_eq, dtype):
-    B = 64
-    H, U, A, R = _family(k, m_eq, 24, B)
+@pytest.mark.parametrize("k,m_eq,n,B,dtype", [
+    (2, 0, 24, 64, torch.float32),
+    (5, 2, 24, 64, torch.float32),
+    (13, 2, 24, 64, torch.float64),
+    (2, 0, 100, 64, torch.float64),     # f64 is streamed
+    (2, 1, 100, 64, torch.float32),     # an equality row: streamed
+    (3, 0, 100, 64, torch.float32),     # dim 4
+    (7, 0, 100, 64, torch.float32),     # dim 8, the widest held
+    (8, 0, 100, 64, torch.float32),     # dim 9, the first streamed
+    (2, 0, 128, 64, torch.float32),     # the last n held
+    (2, 0, 129, 64, torch.float32),     # the first n streamed
+    (2, 0, 1000, 64, torch.float32),
+    (2, 0, 10000, 8, torch.float32)])
+def test_kernels_match_plain(dev, k, m_eq, n, B, dtype):
+    # the random family up to n = 100, bench.py's (k = 2) beyond
+    H, U, A, R = (_family(k, m_eq, n, B) if n <= 100
+                  else _bench_family(n, B))
 
     def t(a):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
