@@ -204,6 +204,38 @@ def spd_batch(B, n, dtype, dev, seed):
     return X.to(dtype)
 
 
+def k4_cases(dev):
+    """(name, X) for phase 3's K4 checks, one lane of each not SPD: the
+    sweep's n and a ragged one, n = 1, 2 and 33, the held path's last n
+    and the panel path's first in each type; at n = 100 a failed pivot in
+    column 0, a zero pivot (row and column 50 zero: the pivot is exactly
+    0, 1/sqrt(0) = inf and 0 * inf = NaN) and a failed pivot in the last,
+    ragged column block."""
+    from cvx_tpu_torch.ops.chol import held_max_n
+
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        held = held_max_n(dtype)
+        for n, B in sorted({(1, 67), (2, 67), (33, 67), (77, 67), (100, 67),
+                            (128, 67), (held, 67), (held + 1, 67), (256, 23),
+                            (512, 13)}):
+            X = spd_batch(B, n, dtype, dev, seed=n)
+            X[B // 2, n // 3, n // 3] = -1.0   # one lane is not SPD
+            out.append((f"{str(dtype)[6:]} B={B} n={n}", X))
+        for m, where in enumerate(("failed pivot in column 0",
+                                   "zero pivot in column 50",
+                                   "failed pivot in column 97 (last block)")):
+            X = spd_batch(67, 100, dtype, dev, seed=1000 + m)
+            if where.startswith("zero"):
+                X[33, 50, :] = 0.0
+                X[33, :, 50] = 0.0
+            else:
+                k = 0 if "column 0" in where else 97
+                X[33, k, k] = -1.0
+            out.append((f"{str(dtype)[6:]} B=67 n=100, {where}", X))
+    return out
+
+
 def max_abs(d, lanes):
     """max |d| over the selected lanes (rows of a 2-D d), 0 for none."""
     return float(d[lanes].abs().max()) if lanes.any() else 0.0
@@ -528,12 +560,8 @@ def main() -> int:
             check(torch.equal(xk[2], args[4][2])
                   and bool(torch.isfinite(xk).all()),
                   "K3: the no-step guard holds lane 2 at x0, every x finite")
-    for dtype in (torch.float32, torch.float64):
-        for n, B in ((77, 67), (100, 67), (128, 67), (256, 23), (512, 13)):
-            X = spd_batch(B, n, dtype, dev, seed=n)
-            X[B // 2, n // 3, n // 3] = -1.0   # one lane is not SPD
-            compare_k4(f"{str(dtype)[6:]} B={B} n={n}", X,
-                       cholesky_batched_cuda, cholesky_batched_plain)
+    for cname, X in k4_cases(dev):
+        compare_k4(cname, X, cholesky_batched_cuda, cholesky_batched_plain)
     check(all(k.launches > 0 for k in kernels),
           f"launch counters {kernel_counts(*kernels)}")
 

@@ -6,8 +6,10 @@ Counterpart of ``cvx_tpu/ops/pallas_chol.py``.  One kernel, in
 
 * ``cholesky_batched_cuda`` (K4) replaces the Pallas kernel
   ``_chol_tile_kernel`` (``pallas_call`` at pallas_chol.py:139): the lower
-  Cholesky factor of a batch of SPD matrices, right-looking and blocked
-  with bk = 32, its strict upper triangle zeroed.
+  Cholesky factor of a batch of SPD matrices, its strict upper triangle
+  zeroed.  Up to ``held_max_n(dtype)`` the kernel holds the matrix in
+  registers and factors it column by column (the held path); above, it
+  stages column blocks of bk = 32 in shared memory (the panel path).
 
 ``cholesky_batched_plain`` is the same algorithm in PyTorch ops (not
 ``torch.linalg.cholesky``).  The TPU kernel padded n to a multiple of 128
@@ -33,6 +35,8 @@ import torch
 from . import _build
 
 _BK = 32           # column block width (kBk in csrc/chol.cu)
+# the held path's largest n (kHeldMaxN, kHeldMaxNF64 in csrc/chol.cu)
+_HELD_MAX_N = {torch.float32: 128, torch.float64: 128}
 _SMEM = 232448     # shared memory one block may use on Hopper, bytes
 
 
@@ -67,6 +71,13 @@ def max_n(dtype) -> int:
     """Largest n the kernel takes: its panel, n x (bk + 1) elements, must
     fit one block's shared memory."""
     return _SMEM // ((_BK + 1) * torch.finfo(dtype).bits // 8)
+
+
+def held_max_n(dtype) -> int:
+    """Largest n the kernel factors on its held path (the matrix in
+    registers, one fma per element and column); larger n, up to
+    ``max_n(dtype)``, take the panel path."""
+    return _HELD_MAX_N[dtype]
 
 
 def cholesky_batched_cuda(x: torch.Tensor) -> torch.Tensor:

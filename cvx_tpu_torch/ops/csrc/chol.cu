@@ -5,36 +5,54 @@
 // The plain PyTorch version of the same algorithm is
 // cholesky_batched_plain in ../chol.py.
 //
-// Algorithm (the reference's): right-looking and blocked with kBk = 32
-// columns.  For each column block: factor its bk columns one at a time
+// Two paths, chosen by the launcher by n and type: the held path for n <=
+// kHeldMaxN (f32) / kHeldMaxNF64 (f64), the panel path above.  Both give L
+// with its strict upper triangle zeroed; a pivot that is not positive gives
+// NaN (1/sqrt of a negative, or 0 * inf on a zero pivot), which spreads to
+// the columns after it, as in the reference.
+//
+// What bounds it on this card.  At 4096 matrices of n = 100 in f32 the
+// kernel must read each input's lower triangle (83 MB) and write the whole
+// factor (164 MB), 0.074 ms at 3.35 TB/s, against n^3/3 flops per matrix
+// (1.4 GFLOP, 0.02 ms at 67 TFLOP/s): by bytes, but what holds a kernel
+// back at this n is instruction issue and the latency of the n dependent
+// column steps, not either bound.
+//
+// The held path (the main shape).  One block of 16 x 16 threads per
+// matrix; thread (ty, tx) holds the elements (ty + 16 i, tx + 16 s), i >= s,
+// of the lower triangle in registers from load to store (a 2-D cyclic map:
+// with equal moduli the triangle is known at compile time, so no loop body
+// divides or tests an upper element, and every thread keeps work as the
+// active corner shrinks).  The algorithm is the unblocked right-looking
+// one: for each column j, every thread reads column j and 1/sqrt of its
+// pivot from shared memory, forms L[r][j] = A[r][j] * rs and L[c][j] =
+// A[c][j] * rs itself (the same values the plain version stores) and
+// updates its elements with c > j by one fma each.  The owners of column
+// j + 1 then publish it into the other of two column buffers, and the
+// owner of its pivot its 1/sqrt: one barrier per column.  Column j's own
+// elements are scaled only at the store.  The matrix is read once (the
+// lower triangle) and L written once (upper zeros included).
+//
+// The panel path (n above the held limit, up to the shared memory of one
+// block: right-looking and blocked with kBk = 32 columns, as the
+// reference).  For each column block: factor its bk columns one at a time
 // (column j of L is column j of the updated matrix times 1/sqrt of its
 // pivot, then a rank-1 update of the block's remaining columns), then
 // subtract P P^T from the trailing matrix, P the block's rows below it.
-// The result is L with its strict upper triangle zeroed; a pivot that is
-// not positive gives NaN (1/sqrt of a negative), which spreads to the
-// columns after it, as in the reference.
-//
-// What bounds it on this card.  At 4096 matrices of n = 100 in f32 the
-// kernel must read 164 MB and write 164 MB (about 0.1 ms at 3.35 TB/s)
-// against n^3/3 flops per matrix (1.4 GFLOP, 0.02 ms at 67 TFLOP/s): it is
-// bound by bytes, and by the latency of the n dependent column steps.
-//
-// What the design does about it.  One block of kThreads per matrix.  The
-// matrix is factored in place in the output buffer (global memory, hot in
-// L2); the column block being factored, with every row below it, is staged
-// in shared memory (n x (kBk + 1) elements; the +1 keeps the column reads
-// of the rank-1 and trailing updates off one bank), factored there with a
-// barrier per column, and written back.  The trailing update reads P from
-// shared memory and updates only the lower triangle, each thread one
-// element at a time, its bk-term sum written out by hand.  Nothing is
+// One block of kThreads per matrix factors in place in the output buffer
+// (global memory, hot in L2); the column block being factored, with every
+// row below it, is staged in shared memory (n x (kBk + 1) elements; the +1
+// keeps the column reads of the rank-1 and trailing updates off one bank),
+// factored there with a barrier per column, and written back.  Nothing is
 // padded: the last block is ragged.
 //
-// Numerics: IEEE sqrt and division (no fast math, --fmad=false); the
-// trailing sums run in ascending column order, which need not match the
-// plain version's matmul, so the kernel is held to it by a tolerance.
+// Numerics: IEEE sqrt and division (no fast math, --fmad=false); the held
+// path's updates are explicit fmas, the panel path's trailing sums run in
+// ascending column order; neither matches the plain version's matmul in
+// every bit, so the kernel is held to it by a tolerance.
 //
 // Interface: plain C; X with any batch and row stride and contiguous
-// columns, L contiguous (B, n, n).  Each entry launches on the given
+// columns, L contiguous (B, n, n).  Each entry launches once on the given
 // stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -110,10 +128,121 @@ chol_kernel(const T* __restrict__ X, long long sXb, long long sXr,
   }
 }
 
+
+// the held path: n up to these (0: every n takes the panel path)
+constexpr int kHeldMaxN = 128;
+constexpr int kHeldMaxNF64 = 128;
+constexpr int kSide = 16;        // the held path's block is kSide x kSide
+
+__device__ __forceinline__ float kfma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double kfma(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// G = ceil(n / kSide) column (and row) groups; thread (ty, tx) holds
+// a[i][s] = element (ty + kSide i, tx + kSide s) for i >= s.  Rows and
+// columns past n are padding: they take part in the arithmetic (no
+// predicate for them) but never in a real element or in the store.
+template <typename T, int G>
+__global__ void __launch_bounds__(kSide * kSide)
+chol_held_kernel(const T* __restrict__ X, long long sXb, long long sXr,
+                 T* __restrict__ Lout, int n) {
+  constexpr int NP = kSide * G;
+  __shared__ T col[2][NP];   // column j before scaling, by parity of j
+  __shared__ T rsq[NP];      // 1 / sqrt of pivot j
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const T* Xb = X + blockIdx.x * sXb;
+  T* L = Lout + (long long)blockIdx.x * n * n;
+
+  T a[G][G];
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int s = 0; s <= i; ++s) {
+      const int r = ty + kSide * i, c = tx + kSide * s;
+      a[i][s] = (r < n && c <= r) ? Xb[r * sXr + c] : T(0);
+    }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) col[0][ty + kSide * i] = a[i][0];
+    if (ty == 0) rsq[0] = T(1) / ksqrt(a[0][0]);
+  }
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    const T* cj = col[j & 1];
+    const T rs = rsq[j];
+    const int j1 = j + 1;
+    T lr[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) lr[i] = cj[ty + kSide * i] * rs;
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      if (kSide * s + kSide - 1 <= j) continue;   // group s is factored
+      const int c = tx + kSide * s;
+      const T lc = cj[c] * rs;
+      if (c > j) {
+#pragma unroll
+        for (int i = s; i < G; ++i)
+          if (i > s || ty >= tx) a[i][s] = kfma(-lr[i], lc, a[i][s]);
+      }
+      // column j + 1 is in group s: its owners publish it, updated
+      if (s == j1 / kSide && tx == j1 % kSide && j1 < n) {
+        T* cn = col[j1 & 1];
+#pragma unroll
+        for (int i = s; i < G; ++i) {
+          const int r = ty + kSide * i;
+          if (r >= j1 && r < n) cn[r] = a[i][s];
+        }
+        if (ty == tx) rsq[j1] = T(1) / ksqrt(a[s][s]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // L[r][c] = A[r][c] rs_c on and below the diagonal, 0 above
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      const int r = ty + kSide * i, c = tx + kSide * s;
+      if (r < n && c < n) {
+        T v = T(0);
+        if (i > s || (i == s && ty >= tx)) v = a[i][s] * rsq[c];
+        L[(long long)r * n + c] = v;
+      }
+    }
+}
+
+template <typename T, int G>
+int launch_held(const T* X, long long sXb, long long sXr, T* L, int B, int n,
+                cudaStream_t stream) {
+  if constexpr (G > 1) {
+    if (n <= kSide * (G - 1))
+      return launch_held<T, G - 1>(X, sXb, sXr, L, B, n, stream);
+  }
+  chol_held_kernel<T, G><<<B, dim3(kSide, kSide), 0, stream>>>(
+      X, sXb, sXr, L, n);
+  return cudaGetLastError();
+}
+
+template <typename T>
+constexpr int held_max_n() {
+  return sizeof(T) == 4 ? kHeldMaxN : kHeldMaxNF64;
+}
+
 template <typename T>
 int launch_chol(const void* X, long long sXb, long long sXr, void* L, int B,
                 int n, void* stream) {
   if (B < 1 || n < 1) return cudaErrorInvalidValue;
+  constexpr int G = (held_max_n<T>() + kSide - 1) / kSide;
+  if constexpr (G > 0) {
+    if (n <= held_max_n<T>())
+      return launch_held<T, G>((const T*)X, sXb, sXr, (T*)L, B, n,
+                               (cudaStream_t)stream);
+  }
   const size_t smem = (size_t)n * kPad * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       chol_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
