@@ -36,7 +36,7 @@ from . import _build
 
 _BK = 32           # column block width (kBk in csrc/chol.cu)
 # the held path's largest n (kHeldMaxN, kHeldMaxNF64 in csrc/chol.cu)
-_HELD_MAX_N = {torch.float32: 128, torch.float64: 128}
+_HELD_MAX_N = {torch.float32: 192, torch.float64: 192}
 _SMEM = 232448     # shared memory one block may use on Hopper, bytes
 
 

@@ -30,8 +30,14 @@
 // updates its elements with c > j by one fma each.  The owners of column
 // j + 1 then publish it into the other of two column buffers, and the
 // owner of its pivot its 1/sqrt: one barrier per column.  Column j's own
-// elements are scaled only at the store.  The matrix is read once (the
-// lower triangle) and L written once (upper zeros included).
+// elements are scaled only at the store.  The columns run in phases of
+// 16, one per column group and each compiled for its group, so that which
+// groups are still active is known at compile time: a step touches only
+// the active groups' registers and column values, and only the group that
+// holds column j tests its columns against j.  The matrix is read once
+// (the lower triangle) and L written once (upper zeros included).  The
+// registers (28 f32 elements a thread at n = 100, 78 at n = 192) set the
+// limit; above it the panel path takes over.
 //
 // The panel path (n above the held limit, up to the shared memory of one
 // block: right-looking and blocked with kBk = 32 columns, as the
@@ -128,10 +134,9 @@ chol_kernel(const T* __restrict__ X, long long sXb, long long sXr,
   }
 }
 
-
 // the held path: n up to these (0: every n takes the panel path)
-constexpr int kHeldMaxN = 128;
-constexpr int kHeldMaxNF64 = 128;
+constexpr int kHeldMaxN = 192;
+constexpr int kHeldMaxNF64 = 192;
 constexpr int kSide = 16;        // the held path's block is kSide x kSide
 
 __device__ __forceinline__ float kfma(float a, float b, float c) {
@@ -142,16 +147,72 @@ __device__ __forceinline__ double kfma(double a, double b, double c) {
 }
 
 // G = ceil(n / kSide) column (and row) groups; thread (ty, tx) holds
-// a[i][s] = element (ty + kSide i, tx + kSide s) for i >= s.  Rows and
-// columns past n are padding: they take part in the arithmetic (no
+// a[i][s] = element (ty + kSide i, tx + kSide s) for i >= s (for i = s
+// also the upper elements ty < tx, whose values are never used).  Rows
+// and columns past n are padding: they take part in the arithmetic (no
 // predicate for them) but never in a real element or in the store.
+
+// Column j1 of the matrix, in group S, as updated through column j1 - 1:
+// its owners (tx = j1 - kSide S) write it to the column buffer cn, and
+// the owner of its pivot writes 1 / sqrt of the pivot to rsq[j1].
+template <typename T, int G, int S>
+__device__ __forceinline__ void publish(const T (&a)[G][G], T* cn, T* rsq,
+                                        int j1, int n, int tx, int ty) {
+  if constexpr (S < G) {
+    if (tx == j1 - kSide * S && j1 < n) {
+      if (ty >= tx) cn[ty + kSide * S] = a[S][S];
+#pragma unroll
+      for (int i = S + 1; i < G; ++i) cn[ty + kSide * i] = a[i][S];
+      if (ty == tx) rsq[j1] = T(1) / ksqrt(a[S][S]);
+    }
+  }
+}
+
+// Columns j of group G0 (kSide G0 <= j < min(kSide (G0 + 1), n)), the
+// groups before it factored: for each, the rank-1 update of the columns
+// after j with L[r][j] = A[r][j] rs and L[c][j] = A[c][j] rs, then column
+// j + 1 published, then one barrier.  Group G0's columns up to j keep
+// their values; the groups after it are updated whole.
+template <typename T, int G, int G0>
+__device__ __forceinline__ void held_phase(T (&a)[G][G], T*& cj, T*& cn,
+                                           T* rsq, int n, int tx, int ty) {
+  const int jend = min(kSide * (G0 + 1), n);
+  for (int j = kSide * G0; j < jend; ++j) {
+    const T rs = rsq[j];
+    T lr[G];
+#pragma unroll
+    for (int i = G0; i < G; ++i) lr[i] = cj[ty + kSide * i] * rs;
+    const T l0 = cj[tx + kSide * G0] * rs;
+    const bool on = tx > j - kSide * G0;
+#pragma unroll
+    for (int i = G0; i < G; ++i)
+      a[i][G0] = on ? kfma(-lr[i], l0, a[i][G0]) : a[i][G0];
+#pragma unroll
+    for (int s = G0 + 1; s < G; ++s) {
+      const T lc = cj[tx + kSide * s] * rs;
+#pragma unroll
+      for (int i = s; i < G; ++i) a[i][s] = kfma(-lr[i], lc, a[i][s]);
+    }
+    const int j1 = j + 1;
+    if (j1 < kSide * (G0 + 1))
+      publish<T, G, G0>(a, cn, rsq, j1, n, tx, ty);
+    else
+      publish<T, G, G0 + 1>(a, cn, rsq, j1, n, tx, ty);
+    __syncthreads();
+    T* t = cj;
+    cj = cn;
+    cn = t;
+  }
+  if constexpr (G0 + 1 < G)
+    held_phase<T, G, G0 + 1>(a, cj, cn, rsq, n, tx, ty);
+}
+
 template <typename T, int G>
 __global__ void __launch_bounds__(kSide * kSide)
 chol_held_kernel(const T* __restrict__ X, long long sXb, long long sXr,
                  T* __restrict__ Lout, int n) {
-  constexpr int NP = kSide * G;
-  __shared__ T col[2][NP];   // column j before scaling, by parity of j
-  __shared__ T rsq[NP];      // 1 / sqrt of pivot j
+  __shared__ T col[2][kSide * G];   // columns j and j + 1 before scaling
+  __shared__ T rsq[kSide * G];      // 1 / sqrt of pivot j
   const int tx = threadIdx.x, ty = threadIdx.y;
   const T* Xb = X + blockIdx.x * sXb;
   T* L = Lout + (long long)blockIdx.x * n * n;
@@ -164,43 +225,11 @@ chol_held_kernel(const T* __restrict__ X, long long sXb, long long sXr,
       const int r = ty + kSide * i, c = tx + kSide * s;
       a[i][s] = (r < n && c <= r) ? Xb[r * sXr + c] : T(0);
     }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < G; ++i) col[0][ty + kSide * i] = a[i][0];
-    if (ty == 0) rsq[0] = T(1) / ksqrt(a[0][0]);
-  }
+  T* cj = col[0];     // column j; column j + 1 goes to cn
+  T* cn = col[1];
+  publish<T, G, 0>(a, cj, rsq, 0, n, tx, ty);
   __syncthreads();
-
-  for (int j = 0; j < n; ++j) {
-    const T* cj = col[j & 1];
-    const T rs = rsq[j];
-    const int j1 = j + 1;
-    T lr[G];
-#pragma unroll
-    for (int i = 0; i < G; ++i) lr[i] = cj[ty + kSide * i] * rs;
-#pragma unroll
-    for (int s = 0; s < G; ++s) {
-      if (kSide * s + kSide - 1 <= j) continue;   // group s is factored
-      const int c = tx + kSide * s;
-      const T lc = cj[c] * rs;
-      if (c > j) {
-#pragma unroll
-        for (int i = s; i < G; ++i)
-          if (i > s || ty >= tx) a[i][s] = kfma(-lr[i], lc, a[i][s]);
-      }
-      // column j + 1 is in group s: its owners publish it, updated
-      if (s == j1 / kSide && tx == j1 % kSide && j1 < n) {
-        T* cn = col[j1 & 1];
-#pragma unroll
-        for (int i = s; i < G; ++i) {
-          const int r = ty + kSide * i;
-          if (r >= j1 && r < n) cn[r] = a[i][s];
-        }
-        if (ty == tx) rsq[j1] = T(1) / ksqrt(a[s][s]);
-      }
-    }
-    __syncthreads();
-  }
+  held_phase<T, G, 0>(a, cj, cn, rsq, n, tx, ty);
 
   // L[r][c] = A[r][c] rs_c on and below the diagonal, 0 above
 #pragma unroll

@@ -6,13 +6,12 @@ text-substituted variants of the committed source, each with
 ``_build.NVCC_FLAGS`` plus ``-Xptxas -v``, one nvcc each, all started
 together, into ``_probe/build`` (gitignored):
 
-* ``nofma``: the held path's update as a multiply and a subtraction (two
+* ``nofma``: the held path's update as a multiply and an addition (two
   roundings under ``--fmad=false``) instead of one fma;
 * ``rs2``: the row factor left unscaled and the column factor scaled by
-  rs * rs (one multiply fewer per row and column);
+  rs * rs (one multiply fewer per row and column, other roundings);
 * ``lb4``: ``__launch_bounds__(256, 4)`` on the held kernel (64 registers);
-* ``held192``: the held path up to n = 192 in both types;
-* ``f64panel``: f64 on the panel path at every n;
+* ``panel``: every n on the panel path;
 * ``nosync``: the held path's barrier per column cut out, so that its
   results are wrong and only its time is read: what the barriers and the
   column chain's latency cost.
@@ -27,13 +26,15 @@ their opcodes) of the f32 panel kernel and of the held kernel at n = 100;
 with ``--time`` times every variant, the baseline and
 ``torch.linalg.cholesky_ex`` with CUDA events in turns (forward, then
 backward) at 4096 x 100 and 4096 x 128 (f32, f64), either side of the held
-path's limit (f32 4096 x 129 / 144 / 160 / 192) and at the sweep's panel
+path's limits (f32 4096 x 129 / 144 / 160 / 176 / 192 / 193, f64 4096 x
+144 / 192 / 193) and at the sweep's panel
 shapes 1024 x 256 and 256 x 512.
 
-    python3 probe_k4.py [--baseline OLD.cu] [--time] [--sass] [--out DIR]
+    python3 probe_k4.py [--baseline OLD.cu ...] [--time] [--sass] [--out DIR]
 
-The baseline is any earlier version of ``chol.cu`` with the same C
-interface, e.g. ``git show <commit>:cvx_tpu_torch/ops/csrc/chol.cu``.
+A baseline is any earlier version of ``chol.cu`` with the same C
+interface, e.g. ``git show <commit>:cvx_tpu_torch/ops/csrc/chol.cu``;
+the first is named ``baseline``, the next ``baseline_2`` and so on.
 Needs a CUDA device and nvcc; writes nvcc's reports to
 ``DIR/ptxas_<variant>.txt`` and the whole log to ``DIR/log.txt`` (default
 ``_probe/build``).  Exit code 1 if the committed source fails a check.
@@ -81,23 +82,24 @@ def substitute(src, old, new):
 def variants(baseline):
     src = (ROOT / "cvx_tpu_torch/ops/csrc/chol.cu").read_text()
     out = {"committed": src}
-    if baseline:
-        out["baseline"] = Path(baseline).read_text()
-    out["nofma"] = substitute(src, "a[i][s] = kfma(-lr[i], lc, a[i][s]);",
-                              "a[i][s] = a[i][s] - lr[i] * lc;")
-    out["rs2"] = substitute(
-        substitute(src, "lr[i] = cj[ty + kSide * i] * rs;",
-                   "lr[i] = cj[ty + kSide * i];"),
-        "const T lc = cj[c] * rs;", "const T lc = cj[c] * (rs * rs);")
+    for k, path in enumerate(baseline or ()):
+        out["baseline" + (f"_{k + 1}" if k else "")] = Path(path).read_text()
+    out["nofma"] = substitute(substitute(src, "return fmaf(a, b, c);",
+                                         "return a * b + c;"),
+                              "return fma(a, b, c);", "return a * b + c;")
+    rs2 = substitute(src, "const T rs = rsq[j];",
+                     "const T rs = rsq[j], rs2 = rs * rs;")
+    rs2 = substitute(rs2, "lr[i] = cj[ty + kSide * i] * rs;",
+                     "lr[i] = cj[ty + kSide * i];")
+    rs2 = substitute(rs2, "cj[tx + kSide * G0] * rs;",
+                     "cj[tx + kSide * G0] * rs2;")
+    out["rs2"] = substitute(rs2, "cj[tx + kSide * s] * rs;",
+                            "cj[tx + kSide * s] * rs2;")
     out["lb4"] = substitute(src, "__launch_bounds__(kSide * kSide)",
                             "__launch_bounds__(kSide * kSide, 4)")
-    held = re.sub(r"constexpr int kHeldMaxN = \d+;",
-                  "constexpr int kHeldMaxN = 192;", src)
-    out["held192"] = re.sub(r"constexpr int kHeldMaxNF64 = \d+;",
-                            "constexpr int kHeldMaxNF64 = 192;", held)
-    out["f64panel"] = re.sub(r"constexpr int kHeldMaxNF64 = \d+;",
-                             "constexpr int kHeldMaxNF64 = 0;", src)
-    loop_sync = "    }\n    __syncthreads();\n  }\n\n  // L[r][c]"
+    out["panel"] = re.sub(r"constexpr int kHeldMaxN(F64)? = \d+;",
+                          r"constexpr int kHeldMaxN\1 = 0;", src)
+    loop_sync = "    __syncthreads();\n    T* t = cj;"
     out["nosync"] = substitute(src, loop_sync,
                                loop_sync.replace("__syncthreads();", ""))
     return out
@@ -153,10 +155,11 @@ def build(srcs, out):
     return libs
 
 
-def sass_loops(so, kernel):
+def sass_loops(so, kernel, dump):
     """Every loop (a backward branch and the span back to its target) of
     the function whose mangled name holds ``kernel``: [(static
-    instructions, {opcode: count}), ...] in address order."""
+    instructions, {opcode: count}), ...] in address order; the function's
+    SASS is written to the file ``dump``."""
     sass = subprocess.run(
         [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
         capture_output=True, text=True, check=True).stdout
@@ -164,6 +167,7 @@ def sass_loops(so, kernel):
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         if kernel not in fn.split("\n", 1)[0]:
             continue
+        dump.write_text(fn)
         ins = [(int(m[1], 16), m[2], m[3]) for m in re.finditer(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)[.\w]*"
             r"(.*?);", fn)]
@@ -216,7 +220,10 @@ def time_all(libs, dev, smi):
     shapes = [(4096, 100, torch.float32), (4096, 128, torch.float32),
               (4096, 100, torch.float64), (4096, 128, torch.float64),
               (4096, 129, torch.float32), (4096, 144, torch.float32),
-              (4096, 160, torch.float32), (4096, 192, torch.float32),
+              (4096, 160, torch.float32), (4096, 176, torch.float32),
+              (4096, 192, torch.float32), (4096, 193, torch.float32),
+              (4096, 144, torch.float64), (4096, 192, torch.float64),
+              (4096, 193, torch.float64),
               (1024, 256, torch.float32), (256, 512, torch.float32)]
     for B, n, dtype in shapes:
         X = spd_batch(B, n, dtype, dev, seed=B + n)
@@ -247,7 +254,7 @@ def time_all(libs, dev, smi):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--baseline", help="an earlier chol.cu")
+    ap.add_argument("--baseline", nargs="+", help="earlier chol.cu files")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--out", type=Path, default=BUILD,
@@ -270,7 +277,9 @@ def main() -> int:
                           ("committed", "chol_kernelIfE"),
                           ("baseline", "chol_kernelIfE")):
             if name in libs:
-                for size, ops in sass_loops(BUILD / f"{name}.so", key):
+                for size, ops in sass_loops(BUILD / f"{name}.so", key,
+                                            args.out / f"sass_{name}_{key}"
+                                            ".txt"):
                     say(f"sass {name} {key} loop: {size} instructions "
                         f"{json.dumps(ops)}")
     failed = check(libs, dev)

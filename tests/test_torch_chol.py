@@ -96,6 +96,40 @@ def test_non_spd_lane_is_nan_and_the_others_are_not():
         assert np.isnan(L[2]).any()
 
 
+# The NaN contract the CUDA kernel is held to on the card (chip_smoke.py
+# phase 3 compares its NaN pattern with the plain version's): a pivot that
+# is not positive makes exactly the lower triangle from its column on NaN.
+# n = 40 has a ragged last column block (32 + 8) in the port's bk = 32.
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("where", ["failed pivot in column 0",
+                                   "zero pivot in column 20",
+                                   "failed pivot in the last block"])
+def test_failed_pivot_nans_the_lower_triangle_from_its_column_on(where):
+    n = 40
+    X = _spd(3, n, 1e2, seed=4)
+    if where.startswith("zero"):
+        k = 20                  # row and column 20 zero: the pivot is 0
+        X[1, k, :] = 0.0
+        X[1, :, k] = 0.0
+    else:
+        k = 0 if "column 0" in where else 37
+        X[1, k, k] = -1.0
+    L_pal = np.asarray(cholesky_batched_pallas(jnp.asarray(X), bk=16, bt=2,
+                                               interpret=True))
+    L = cholesky_batched_plain(torch.from_numpy(X)).numpy()
+    rows, cols = np.indices((n, n))
+    expected = (rows >= cols) & (cols >= k)
+    assert np.array_equal(np.isnan(L[1]), expected)
+    assert np.array_equal(np.isnan(L_pal[1]), expected)
+    ok = np.array([0, 2])
+    assert np.all(np.isfinite(L[ok]))
+    assert np.max(np.abs(L[ok] - L_pal[ok])) < 1e-10
+    # the columns before k are those of the leading k x k factor
+    L_lead = np.linalg.cholesky(X[1, :k, :k]) if k else np.zeros((0, 0))
+    assert np.max(np.abs(L[1, :k, :k] - L_lead), initial=0.0) < 1e-10
+    assert np.array_equal(np.triu(L[1], 1), np.zeros((n, n)))
+
+
 @pytest.mark.timeout(30)
 def test_wrapper_checks_and_counts():
     before = cholesky_batched_cuda.launches

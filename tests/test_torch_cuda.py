@@ -17,7 +17,8 @@ lanes (both ends polished to f64 rounding): max |dx| <= 1e-11, |dgap| <=
 1e-12.  K3: max |dx| <= 1e-5 in f32 (late Armijo decisions at f32
 resolution), 1e-11 in f64, and 0 on bench.py's family at 1000 x n = 100
 with the default line search.  K4: max |dL| <= 1e-4 relative to max |L|
-in f32 and 1e-10 in f64, NaN where the plain version has NaN.
+in f32 and 1e-10 in f64, NaN where the plain version has NaN (the lower
+triangle from the failed pivot's column on).
 """
 
 import numpy as np
@@ -26,7 +27,7 @@ import torch
 
 from cvx_tpu_torch.ops.chol import (cholesky_batched,
                                     cholesky_batched_cuda,
-                                    cholesky_batched_plain)
+                                    cholesky_batched_plain, held_max_n)
 from cvx_tpu_torch.ops.kl_barrier import (_schedule, kl_barrier_fused,
                                           kl_barrier_fused_plain)
 from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
@@ -212,25 +213,47 @@ def test_k3_bench_case_reaches_every_line_search_path(dev):
     assert bool(((per_step > 1) & (per_step < 12)).any())
 
 
+# chol.cu factors n <= held_max_n(dtype) with the matrix in registers and
+# larger n on its panel path: n either side of the limit in each type, and
+# at n = 100 a failed pivot in column 0, a zero pivot (row and column 50
+# zero) and a failed pivot in the last, ragged column block (96-99)
+_F32_HELD, _F64_HELD = (held_max_n(torch.float32),
+                        held_max_n(torch.float64))
+
+
 @pytest.mark.timeout(600)
-@pytest.mark.parametrize("n,dtype", [(77, torch.float32),
-                                     (128, torch.float64),
-                                     (512, torch.float32)])
-def test_k4_matches_plain(dev, n, dtype):
+@pytest.mark.parametrize("n,dtype,where", [
+    (77, torch.float32, "pivot 10"), (128, torch.float64, "pivot 10"),
+    (512, torch.float32, "pivot 10"),
+    (_F32_HELD, torch.float32, "pivot 10"),
+    (_F32_HELD + 1, torch.float32, "pivot 10"),
+    (_F64_HELD, torch.float64, "pivot 10"),
+    (_F64_HELD + 1, torch.float64, "pivot 10"),
+    (100, torch.float32, "pivot 0"), (100, torch.float32, "zero pivot 50"),
+    (100, torch.float32, "pivot 97")])
+def test_k4_matches_plain(dev, n, dtype, where):
     rng = np.random.default_rng(n)
     M = rng.standard_normal((7, n, n))
     X = torch.tensor(M @ M.transpose(0, 2, 1) / n + np.eye(n), dtype=dtype,
                      device=dev)
-    X[3, 10, 10] = -1.0                 # lane 3 is not positive definite
+    k = int(where.rsplit(" ", 1)[1])   # lane 3 is not positive definite
+    if where.startswith("zero"):
+        X[3, k, :] = 0.0
+        X[3, :, k] = 0.0
+    else:
+        X[3, k, k] = -1.0
     L = cholesky_batched_cuda(X)
     Lp = cholesky_batched_plain(X)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(L), torch.isnan(Lp))
+    rows, cols = torch.meshgrid(torch.arange(n, device=dev),
+                                torch.arange(n, device=dev), indexing="ij")
+    assert torch.equal(torch.isnan(L[3]), (rows >= cols) & (cols >= k))
     ok = torch.tensor([0, 1, 2, 4, 5, 6], device=dev)
     scale = float(Lp[ok].abs().max())
     tol = 1e-4 if dtype == torch.float32 else 1e-10
     assert float((L[ok] - Lp[ok]).abs().max()) <= tol * scale
-    assert torch.equal(torch.triu(L[ok], 1), torch.zeros_like(L[ok]))
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
     assert torch.equal(cholesky_batched(X, method="cuda").isnan(),
                        L.isnan())
 
