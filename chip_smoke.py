@@ -11,6 +11,11 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
   ``solve_jittable`` with ``method="fused"``; kernel K3);
 * the batched Cholesky (``ops.chol.cholesky_batched(method="cuda")`` on
   4096 matrices of n = 100; kernel K4);
+* the generic interior-point core in f64 (phase 4b): ``solve()`` (the
+  barrier on the dual), ``solve("BR")`` and ``solve("PD")`` (phase-I, then
+  the primal barrier or primal-dual method) and ``solve("fused")`` (phase-I,
+  then K3) on one instance, ``solve_jittable_batch(method="BR")`` and
+  ``feasibility_batch`` at 10,000 instances, and an infeasible problem;
 
 times the kernels with CUDA events beside their plain versions, a library
 call where one computes the same function, and the least time the card
@@ -64,6 +69,10 @@ PRIMAL_GAP = math.sqrt(torch.finfo(torch.float32).eps)   # the stall rule
 PRIMAL_CERT = 1e-4   # host f64 certificate of the primal slice's f32 x
 PRIMAL_DOBJ = 1e-4   # |f(x_primal) - f(x_certified)| per instance
 PRODUCTION = dict(max_iter=3, mu=55.0, tol=1e-8)   # bench.py's schedule
+# the generic core (phase 4b, f64): max |dx| against K2's certified x of the
+# same instance (the barrier's gap bound m/t is <= 1e-8), and the host f64
+# certificate |gap| of each x
+GEN_DX, GEN_CERT = 1e-5, 1e-6
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet; f64 outside the
 # tensor cores)
@@ -150,6 +159,18 @@ def dual_cases(dev):
         out.append((f"family of bench.py B={B} n={n}",
                     t(H)[None].expand(B, -1, -1), t(U), None, None))
     return out
+
+
+def mixed_batch(n, B, frac_infeasible=0.25, seed=0):
+    """tests/test_round5.py:293-305: P(A) >= pA and P(A) <= qA (|A| = 3),
+    with qA < pA (infeasible) on every 4th instance; returns (H, U, bad)."""
+    rng = np.random.default_rng(seed)
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    pA = rng.uniform(0.3, 0.5, B)
+    qA = pA + rng.uniform(0.05, 0.2, B)
+    bad = np.zeros(B, bool); bad[:: int(1 / frac_infeasible)] = True
+    qA[bad] = pA[bad] - rng.uniform(0.05, 0.1, bad.sum())
+    return np.stack([-I_A, I_A]), np.stack([-pA, qA], axis=1), bad
 
 
 def primal_args(H, U, X0, dev, dtype=torch.float32):
@@ -448,12 +469,16 @@ def zero_counts(*kernels):
         k.launches = 0
 
 
-def device_busy(fn, reps):
+def device_busy(fn, reps, warm=True, raw=False):
     """(host wall ms median of ``reps`` calls ending in synchronize(),
     device busy ms per call and device ops per call from a torch.profiler
     trace of ``reps`` calls); the profiler figures are None where the
-    trace holds no device time."""
-    fn()
+    trace holds no device time.  ``warm=False`` skips the warm-up call
+    (the caller has made one).  ``raw=True`` traces the device activity
+    alone and sums its raw events: for calls of a million launches, where
+    tracing the host ops and ``key_averages`` take many minutes."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     walls = []
     for _ in range(reps):
@@ -461,30 +486,152 @@ def device_busy(fn, reps):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] if raw else
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     busy_us, ops = 0.0, 0
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += us
-            ops += evt.count
-    wall = statistics.median(walls)
+    if raw:
+        for evt in prof.profiler.kineto_results.events():
+            if evt.device_type() == torch.autograd.DeviceType.CUDA:
+                busy_us += evt.duration_ns() / 1e3
+                ops += 1
+    else:
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+            if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                busy_us += us
+                ops += evt.count
     if busy_us <= 0:
         return wall, None, None
     return wall, busy_us / 1e3 / reps, ops / reps
+
+
+def generic_core(dev, kernels, H, U, x_cert):
+    """Phase 4b: the generic core through the entry points, in f64, each
+    route with the counters set to 0 just before it and read just after.
+    Returns phase 6's timed calls of the two batched routes."""
+    from cvx_tpu_torch import DistKL, SolverParams
+    from cvx_tpu_torch.diagnostics import kl_gap_certificate_np
+    from cvx_tpu_torch.solvers import InfeasibleProblemError
+
+    print("phase 4b: the generic core (f64)")
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "f32 matmuls at full precision (no TF32)")
+    f64 = dict(dtype=torch.float64, device=dev)
+    none = {k.__name__: 0 for k in kernels}
+    one = DistKL.create(100, H=torch.tensor(H, **f64),
+                        u=torch.tensor(U[0], **f64))
+    for method in ("dual", "BR", "PD", "fused"):
+        zero_counts(*kernels)
+        t0 = time.perf_counter()
+        s = one.solve() if method == "dual" else one.solve(method)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_counts(*kernels)
+        want = dict(none, kl_barrier_fused=int(method == "fused"))
+        x = s.x
+        dx = float((x - x_cert[0].to(x.dtype)).abs().max())
+        gap = float(kl_gap_certificate_np(x[None].cpu().numpy(), H,
+                                          U[:1])[0])
+        print(f"  solve({method!r}) from the uniform point: {wall:.3f} s, "
+              f"iters {int(s.iters)}, max|dx| vs K2 {dx:.3e}, host "
+              f"certificate {gap:.3e}, launches {launches}")
+        check(launches == want,
+              f"solve({method!r}) launched "
+              + ("K3 once and nothing else" if method == "fused"
+                 else "none of K1-K4"))
+        check(bool(torch.isfinite(x).all()) and dx <= GEN_DX
+              and abs(gap) <= GEN_CERT and not bool(s.stalled),
+              f"solve({method!r}): max|dx| <= {GEN_DX:g} against K2's "
+              f"certified x, |certificate| <= {GEN_CERT:g}, not stalled")
+
+    B = U.shape[0]
+    prob = DistKL.create(100, H=torch.tensor(H, **f64),
+                         u=torch.zeros(2, **f64))
+    Ut = torch.tensor(U, **f64)
+    X0 = torch.tensor(feasible_points(U, 100), **f64)
+    torch.cuda.synchronize()
+    zero_counts(*kernels)
+    t0 = time.perf_counter()
+    sol = prob.solve_jittable_batch(Ut, X0, method="BR")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(*kernels)
+    certs = kl_gap_certificate_np(sol.x.cpu().numpy(), H, U)
+    dx = float((sol.x - x_cert.to(sol.x.dtype)).abs().max())
+    nst = int(sol.stalled.sum())
+    print(f"  solve_jittable_batch(method='BR') {B} x n=100: {wall:.3f} s; "
+          f"Newton steps, the batch's longest {int(sol.iters.max())}, "
+          f"median {float(sol.iters.double().median()):.0f}; stalled {nst}; "
+          f"max|certificate| {np.abs(certs).max():.3e}; max|dx| vs K2 "
+          f"{dx:.3e}; launches {launches}")
+    check(launches == none, "the batched BR route launched none of K1-K4")
+    check(tuple(sol.x.shape) == (B, 100) and nst == 0
+          and float(np.abs(certs).max()) <= GEN_CERT and dx <= GEN_DX,
+          f"batched BR: 0 stalled, every |certificate| <= {GEN_CERT:g}, "
+          f"max|dx| <= {GEN_DX:g} against K2's certified x")
+
+    Hm, Um, bad = mixed_batch(100, B)
+    screen = DistKL.create(100, H=torch.tensor(Hm, **f64),
+                           u=torch.zeros(2, **f64))
+    Umt = torch.tensor(Um, **f64)
+    torch.cuda.synchronize()
+    zero_counts(*kernels)
+    t0 = time.perf_counter()
+    s_max, strict = screen.feasibility_batch(Umt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(*kernels)
+    steps = screen._screen(Umt, SolverParams()).iters
+    flagged = (s_max > 0).cpu().numpy()
+    print(f"  feasibility_batch {B} x n=100 ({int(bad.sum())} infeasible): "
+          f"{wall:.3f} s; Newton steps, the batch's longest "
+          f"{int(steps.max())}; flagged {int(flagged.sum())}; launches "
+          f"{launches}")
+    check(launches == none, "feasibility_batch launched none of K1-K4")
+    check(np.array_equal(flagged, bad)
+          and np.array_equal(strict.cpu().numpy(), ~bad),
+          "feasibility_batch: s_max > 0 exactly on the infeasible lanes, "
+          "strictly_feasible exactly on the others")
+
+    # tests/test_kl.py:106-121: P(A) >= .51 and P(B) >= .51, A and B
+    # disjoint
+    I_A = np.zeros(20); I_A[:3] = 1.0
+    I_B = np.zeros(20); I_B[10:] = 1.0
+    bad_prob = DistKL.create(20, H=torch.tensor(np.stack([-I_A, -I_B]), **f64),
+                             u=torch.tensor([-0.51, -0.51], **f64))
+    rep = bad_prob.feasibility()
+    check(not bool(rep.strictly_feasible) and float(rep.s_max) > 0,
+          f"infeasible problem: feasibility() not strictly feasible, s_max "
+          f"{float(rep.s_max):.3e} > 0")
+    raised = False
+    try:
+        bad_prob.solve("BR")
+    except InfeasibleProblemError:
+        raised = True
+    check(raised, "infeasible problem: solve('BR') raised "
+          "InfeasibleProblemError")
+    # phase 6's rows: (label, call, Newton steps of the batch's longest
+    # instance); the calls above were their warm-up
+    return (("generic BR, solve_jittable_batch(method='BR')",
+             lambda: prob.solve_jittable_batch(Ut, X0, method="BR"),
+             int(sol.iters.max())),
+            ("generic phase-I, feasibility_batch",
+             lambda: screen.feasibility_batch(Umt), int(steps.max())))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from cvx_tpu_torch import DistKL, SolverParams
     from cvx_tpu_torch.diagnostics import kl_gap_certificate_np
     from cvx_tpu_torch.ops import _build
@@ -717,6 +864,11 @@ def main() -> int:
     k4_err = compare_k4("the path's f32 B=4096 n=100", Xc,
                         cholesky_batched_cuda, cholesky_batched_plain, Lk=Lc)
 
+    # 4b. the generic core, held to the certified dual slice's x
+    t0 = time.perf_counter()
+    generic_routes = generic_core(dev, kernels, H, U, sol.x)
+    print(f"  phase 4b wall {time.perf_counter() - t0:.1f} s")
+
     # 5. times (CUDA events, in turns), with each kernel's bound
     print("phase 5: times (CUDA events)")
     record = {}
@@ -808,20 +960,27 @@ def main() -> int:
 
     # 6. where the time goes: host wall and device busy share of each path
     print("phase 6: host wall and device busy share per call")
-    for label, fn in (
+    # the generic core's routes take seconds a call: one timed call and one
+    # traced, phase 4b's call their warm-up
+    for label, fn, reps, steps in (
             ("primal fused (K3 + kl_dual_gap)",
              lambda: prob_p.solve_jittable_batch(Ut, X0t, method="fused",
-                                                 pars=pars)),
-            ("dual auto (K2)", lambda: prob_d.solve_certified_batch(Ut)),
+                                                 pars=pars), 10, None),
+            ("dual auto (K2)", lambda: prob_d.solve_certified_batch(Ut), 10,
+             None),
             ("dual fused_cert=False (K1 + f64 finish)",
-             lambda: prob_d.solve_certified_batch(Ut, fused_cert=False)),
+             lambda: prob_d.solve_certified_batch(Ut, fused_cert=False), 10,
+             None),
             ("cholesky_batched cuda 4096 x 100",
-             lambda: cholesky_batched(Xc, method="cuda"))):
-        wall, busy, ops = device_busy(fn, 10)
+             lambda: cholesky_batched(Xc, method="cuda"), 10, None),
+            *((g[0], g[1], 1, g[2]) for g in generic_routes)):
+        wall, busy, ops = device_busy(fn, reps, warm=steps is None,
+                                      raw=steps is not None)
         share = "not measured" if busy is None else f"{busy / wall:.3f}"
         busy_s = "not measured" if busy is None else f"{busy:.4f}"
         print(json.dumps({"path": label, "host_wall_ms": wall,
                           "device_busy_ms": busy, "device_ops": ops,
+                          "calls": reps, "newton_steps_longest": steps,
                           "card": smi}))
         print(f"  {label}: host wall {wall:.4f} ms, device busy {busy_s} "
               f"ms, busy share {share}")
@@ -845,6 +1004,7 @@ def main() -> int:
             "max_abs_err": errs[kname], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": rec["library_ms"]})
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

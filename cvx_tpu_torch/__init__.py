@@ -8,11 +8,14 @@ the batched KL scenario solve through the closed-form dual
 ``solve_certified``, ``solve_certified_batch``) with its two kernels in
 ``ops.kl_dual``; the batched primal solve (``solve_jittable_batch`` /
 ``solve_jittable`` with ``method="fused"`` or ``"BR_fast"``) with its
-kernel in ``ops.kl_barrier``; and the batched Cholesky
-(``ops.cholesky_batched``) with its kernel in ``ops.chol``.  ``DistKL``
-puts a problem on the card unless the caller passes ``device="cpu"``.
-Importing the package builds nothing: the CUDA kernels are compiled at
-their first launch on a CUDA tensor.
+kernel in ``ops.kl_barrier``; the batched Cholesky
+(``ops.cholesky_batched``) with its kernel in ``ops.chol``; and the
+generic interior-point core on a batch axis (``ops``, ``problem``,
+``solvers``, ``duality.solve_dual``), through which every other ``DistKL``
+route runs (``solve()``, "BR", "PD", phase-I, ``feasibility_batch``).
+``DistKL`` puts a problem on the card unless the caller passes
+``device="cpu"``.  Importing the package builds nothing: the CUDA kernels
+are compiled at their first launch on a CUDA tensor.
 """
 
 from .models import DistKL

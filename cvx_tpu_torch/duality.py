@@ -1,10 +1,17 @@
-"""Convex duality: the small dense solves and the projected-Newton polish
-of a dual optimum, batched over a leading instance axis.
+"""Convex duality: solve the primal through its dual, batched over a
+leading instance axis.
 
-Counterpart of ``cvx_tpu/duality.py``: ``_small_solve`` (:30-106) and
-``_polish_dual`` (:109-224).  Where the reference runs one instance and
-is vmapped, these take every per-instance quantity with a leading batch
-axis B.  ``solve_dual`` (the barrier on the dual) is ROADMAP M7.
+Counterpart of ``cvx_tpu/duality.py`` (cvx/Duality.scala:38-135): the
+small dense solves ``_small_solve`` (:30-106), the projected-Newton polish
+of a dual optimum ``_polish_dual`` (:109-224) and ``solve_dual``
+(:228-300), the barrier (or primal-dual) method on
+
+    min -L*(z)   subject to   lambda = z[:num_ineq] >= 0
+
+from z0 = dual_start * 1, polished, then mapped back to the primal by the
+problem's x* = primal_optimum(z*).  Where the reference runs one instance
+and is vmapped, these take every per-instance quantity with a leading
+batch axis B.
 
 These are not the fused kernels' ``_solve_small`` (``ops/kl_dual.py``):
 the floors differ (a ``tiny`` floor on the pivots here, a ``sick`` flag
@@ -13,18 +20,12 @@ there), as they do in the reference.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-
-def _chol_nan(M):
-    """Lower Cholesky factor of a batch, NaN where a matrix is not positive
-    definite (as XLA's Cholesky returns; torch would raise or return a
-    partial factor)."""
-    L, info = torch.linalg.cholesky_ex(M)
-    return torch.where((info > 0)[..., None, None], math.nan, L)
-
+from .ops.cholesky import _chol_nan
 
 def _small_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve a batch of tiny symmetric positive-definite systems A x = b,
@@ -165,3 +166,77 @@ def _polish_dual(obj, z: torch.Tensor, num_ineq: int, steps: int,
         snap = 8.0 * eps * torch.abs(z)
         z = torch.where(mask & (z_out <= snap), 0.0, z_out)
     return z
+
+
+def _data_dtype(obj):
+    """The joint floating dtype of an objective's tensor fields (f32 data
+    keeps the f32 path; the reference's duality.py:246-251)."""
+    dtype = None
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor) and v.dtype.is_floating_point:
+            dtype = v.dtype if dtype is None else torch.promote_types(
+                dtype, v.dtype)
+    return dtype or torch.get_default_dtype()
+
+
+def solve_dual(neg_dual_objective, num_ineq: int, dual_dim: int,
+               primal_optimum, *, method: str = "BR", pars=None,
+               polish_steps: int = 3, batch: int = 1, device=None):
+    """Solve min -L*(z) s.t. z[:, :num_ineq] >= 0 for ``batch`` instances
+    and map back to the primal.
+
+    ``neg_dual_objective`` exposes value/grad/hess of -L* (convex) at
+    points (B, dual_dim).  Returns a batched Solution whose ``x`` is the
+    PRIMAL optimum and whose ``lam``/``nu`` split the dual optimum as in
+    Duality.scala:128-132; ``duality_gap`` keeps the dual barrier's m/t
+    bound (the polish only improves z) and ``norm_grad`` is refreshed at
+    the polished point, with multipliers at the bound excluded.
+    """
+    from .problem.constraint_set import ConstraintSet
+    from .problem.constraints import first_coordinates_positive
+    from .solvers.barrier import barrier_solve
+    from .solvers.newton import newton_minimize
+    from .solvers.primal_dual import primal_dual_solve
+    from .solvers.types import Solution, SolverParams
+
+    pars = pars or SolverParams()
+    dtype = _data_dtype(neg_dual_objective)
+    z0 = torch.full((batch, dual_dim), pars.dual_start, dtype=dtype,
+                    device=device)
+    if num_ineq > 0:
+        cnts = ConstraintSet(blocks=(first_coordinates_positive(
+            dual_dim, num_ineq, dtype=dtype, device=device),))
+        if method == "BR":
+            sol = barrier_solve(neg_dual_objective, cnts, z0, pars)
+        elif method == "PD":
+            sol = primal_dual_solve(neg_dual_objective, cnts, z0, pars)
+        else:
+            raise ValueError(f"unknown solver method: {method!r}")
+    else:
+        # no inequality duals: the unconstrained dual
+        def fgh(z):
+            return (neg_dual_objective.value(z), neg_dual_objective.grad(z),
+                    neg_dual_objective.hess(z))
+
+        def in_set(z):
+            return torch.ones(z.shape[:-1], dtype=torch.bool, device=z.device)
+
+        res = newton_minimize(fgh, in_set, z0, pars,
+                              value_fn=neg_dual_objective.value)
+        nan = torch.full((batch,), math.nan, dtype=dtype, device=device)
+        empty = torch.zeros((batch, 0), dtype=dtype, device=device)
+        sol = Solution(x=res.x, lam=empty, nu=empty, newton_decrement=nan,
+                       duality_gap=nan, eq_gap=nan, norm_grad=res.norm_grad,
+                       norm_dual_residual=nan, iters=res.iters,
+                       maxed_out=res.maxed_out, stalled=res.stalled)
+    z = sol.x
+    if polish_steps > 0:
+        z = _polish_dual(neg_dual_objective, z, num_ineq, polish_steps)
+    g_pol = neg_dual_objective.grad(z)
+    at_b = ((torch.arange(dual_dim, device=z.device) < num_ineq)
+            & (z <= 0.0) & (g_pol > 0.0))
+    return dataclasses.replace(
+        sol, x=primal_optimum(z), lam=z[:, :num_ineq], nu=z[:, num_ineq:],
+        norm_grad=torch.linalg.vector_norm(torch.where(at_b, 0.0, g_pol),
+                                           dim=-1))

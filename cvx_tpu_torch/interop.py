@@ -2,7 +2,12 @@
 
 The two packages share no code; they meet in numpy arrays.  A ``DistKL``
 of either package is a handful of arrays (H, u, A, r, prior) and the
-integer n, so moving a problem across is a copy of those fields.
+integer n, and the generic records (linear and quadratic constraint
+blocks, equalities, linear and quadratic objectives, constraint sets) are
+arrays under the reference's field names, so moving a problem across is
+a copy of those fields.  Each helper takes any object with those names.
+A ``NonlinearBlock`` or ``CustomObjective`` is a function, not data: the
+port's is built from its torch ``fn`` and ``params``.
 """
 
 from __future__ import annotations
@@ -13,7 +18,72 @@ import numpy as np
 import torch
 
 from .models.dist_kl import DistKL
+from .problem.constraint_set import ConstraintSet
+from .problem.constraints import LinearBlock, QuadBlock
+from .problem.equality import EqualityConstraint
+from .problem.objective import LinearObjective, QuadraticObjective
 from .solvers.types import Solution
+
+
+def _fields(rec, names, device, dtype):
+    """The named array fields of ``rec`` as tensors of one floating dtype
+    (default: the first field's) on ``device``."""
+    arrs = [np.asarray(getattr(rec, k)) for k in names]
+    dtype = dtype or torch.from_numpy(np.zeros(0, arrs[0].dtype)).dtype
+    return [torch.from_numpy(np.array(a)).to(dtype=dtype, device=device)
+            for a in arrs]
+
+
+def linear_block_from_numpy(b, *, device="cuda", dtype=None) -> LinearBlock:
+    """The port's ``LinearBlock`` from fields G, c, ub (and label)."""
+    G, c, ub = _fields(b, ("G", "c", "ub"), device, dtype)
+    return LinearBlock(G=G, c=c, ub=ub, label=getattr(b, "label", None))
+
+
+def quad_block_from_numpy(b, *, device="cuda", dtype=None) -> QuadBlock:
+    """The port's ``QuadBlock`` from fields P, a, r, ub (and label)."""
+    P, a, r, ub = _fields(b, ("P", "a", "r", "ub"), device, dtype)
+    return QuadBlock(P=P, a=a, r=r, ub=ub, label=getattr(b, "label", None))
+
+
+def equality_from_numpy(e, *, device="cuda", dtype=None
+                        ) -> EqualityConstraint:
+    """The port's ``EqualityConstraint`` from fields A, b."""
+    A, b = _fields(e, ("A", "b"), device, dtype)
+    return EqualityConstraint(A=A, b=b)
+
+
+def linear_objective_from_numpy(o, *, device="cuda", dtype=None
+                                ) -> LinearObjective:
+    """The port's ``LinearObjective`` from fields a, r."""
+    a, r = _fields(o, ("a", "r"), device, dtype)
+    return LinearObjective(a=a, r=r)
+
+
+def quadratic_objective_from_numpy(o, *, device="cuda", dtype=None
+                                   ) -> QuadraticObjective:
+    """The port's ``QuadraticObjective`` from fields P, a, r."""
+    P, a, r = _fields(o, ("P", "a", "r"), device, dtype)
+    return QuadraticObjective(P=P, a=a, r=r)
+
+
+def constraint_set_from_numpy(cs, *, device="cuda", dtype=None
+                              ) -> ConstraintSet:
+    """The port's ``ConstraintSet`` from a set of linear (G, c, ub) and
+    quadratic (P, a, r, ub) blocks, on the whole space (a nonlinear
+    block raises ``TypeError``: add the port's with ``add_blocks``)."""
+    blocks = []
+    for b in cs.blocks:
+        if hasattr(b, "P"):
+            blocks.append(quad_block_from_numpy(b, device=device, dtype=dtype))
+        elif hasattr(b, "G"):
+            blocks.append(linear_block_from_numpy(b, device=device,
+                                                  dtype=dtype))
+        else:
+            raise TypeError(
+                f"{type(b).__name__} is a function, not data: build the "
+                "port's NonlinearBlock from its torch fn and params")
+    return ConstraintSet(blocks=tuple(blocks))
 
 
 def distkl_from_numpy(d, *, device="cuda", dtype=None) -> DistKL:

@@ -10,22 +10,24 @@ prior.  Both routes of the reference:
 
 * PRIMAL: objective x.log(x/p), gradient 1 + log x - log p, diagonal
   Hessian 1/x (Dist_KL.scala:223-239); the rows of H and positivity as
-  inequalities; [1'; A] x = [1; r] as equalities.  Ported: the whole solve
-  in one kernel (``method="fused"``, K3) and the structured barrier
-  (``"BR_fast"``) from a given strictly feasible point, with the measured
-  certificate ``kl_dual_gap``.
+  inequalities; [1'; A] x = [1; r] as equalities.  Routes: the generic
+  barrier (``method="BR"``) and primal-dual (``"PD"``) methods, the whole
+  solve in one kernel (``"fused"``, K3) and the structured barrier
+  (``"BR_fast"``), from phase-I's strictly feasible point unless one is
+  given, with the measured certificate ``kl_dual_gap`` on the last two.
 * DUAL: -L*(z) = w.z + R.exp(-B'z), R = p/e, B = [H; 1'; A], w = (u, 1, r)
   (Dist_KL.scala:114-171, docs/maxent.pdf), the primal recovered as
-  Q(z) = R exp(-B'z) / sum.  Ported: the whole dual solve in one kernel
-  (``"dual_fused"``, K1), its fallback past dual dim 16 (``"dual_fast"``,
-  ``solve_dual_newton``), the certified routes (``solve_certified``,
-  ``solve_certified_batch``) and ``kl_certify``.
+  Q(z) = R exp(-B'z) / sum.  Routes: the barrier (``"dual"``,
+  ``"dual_BR"``) or primal-dual (``"dual_PD"``) method on the dual, the
+  whole dual solve in one kernel (``"dual_fused"``, K1), its fallback
+  past dual dim 16 (``"dual_fast"``, ``solve_dual_newton``), the
+  certified routes (``solve_certified``, ``solve_certified_batch``) and
+  ``kl_certify``.
 
 Every batched entry point takes per-instance bounds against the model's
 shared rows, the written-out batch axis of the reference's
-``vmap(lambda u_i: DistKL.create(n, H, u_i).solve...)``.  The generic
-core (phase-I, BR, PD and the barrier on the dual) is ROADMAP M7 and
-raises ``NotImplementedError`` naming it.
+``vmap(lambda u_i: DistKL.create(n, H, u_i).solve...)``; phase-I is
+``feasibility`` and, over a batch of bounds, ``feasibility_batch``.
 """
 
 from __future__ import annotations
@@ -37,22 +39,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..duality import _polish_dual, _small_solve
+from ..duality import _polish_dual, _small_solve, solve_dual
 from ..ops.kl_barrier import fused_final_t, fused_n_outer, kl_barrier_fused
 from ..ops.kl_dual import (_FUSED_MAX_DIM, _certify_f64, _Ctx, _polish_f64,
                            _residuals, _solve_small, kl_dual_fused,
                            kl_dual_fused_cert)
+from ..problem.constraint_set import ConstraintSet
+from ..problem.constraints import LinearBlock, positivity, rows_leq
+from ..problem.equality import EqualityConstraint, sum_to_one
+from ..solvers.barrier import barrier_solve
+from ..solvers.phase1 import (FeasibilityReport, _phase1_linear_structured,
+                              feasibility_analysis, find_feasible_point)
+from ..solvers.primal_dual import primal_dual_solve
 from ..solvers.structured import barrier_solve_structured
 from ..solvers.types import Solution, SolverParams
 
-_M7 = "ROADMAP M7 (the generic core: {})"
-_NOT_PORTED = {
-    "dual": _M7.format("duality.solve_dual"),
-    "dual_BR": _M7.format("duality.solve_dual"),
-    "dual_PD": _M7.format("duality.solve_dual"),
-    "BR": _M7.format("barrier_solve"),
-    "PD": _M7.format("primal_dual_solve"),
-}
+_DUAL = ("dual", "dual_BR", "dual_PD")
 
 
 def _prior_terms(prior, n, dtype, device=None):
@@ -93,6 +95,10 @@ class KLObjective:
     def hess_diag(self, x):
         return 1.0 / x
 
+    def take(self, idx):
+        """The objective of instances ``idx``: one shared prior."""
+        return self
+
 
 @dataclass
 class _NegDualObjective:
@@ -102,6 +108,11 @@ class _NegDualObjective:
     B: torch.Tensor   # (mI + 1 + mE, n), shared
     w: torch.Tensor   # (mI + 1 + mE,) or (Bt, mI + 1 + mE)
     R: torch.Tensor   # (n,)
+
+    def take(self, idx):
+        """The dual objective of instances ``idx``."""
+        return dataclasses.replace(self, w=self.w if self.w.dim() == 1
+                                   else self.w[idx])
 
     def _w(self, z):
         if self.w.dim() == 1:
@@ -262,11 +273,12 @@ def _stalled(x, gap, ineq, tol, tol_feas, eq=None):
     return ~torch.all(torch.isfinite(x), dim=-1) | ~ok
 
 
-def _instance(sol: Solution, i: int) -> Solution:
-    """One instance of a batched Solution."""
-    return Solution(**{f.name: (None if getattr(sol, f.name) is None
-                                else getattr(sol, f.name)[i])
-                       for f in dataclasses.fields(sol)})
+def _instance(rec, i: int):
+    """One instance of a batched record (a Solution or a
+    FeasibilityReport)."""
+    return type(rec)(**{f.name: (None if getattr(rec, f.name) is None
+                                 else getattr(rec, f.name)[i])
+                        for f in dataclasses.fields(rec)})
 
 
 @dataclass
@@ -335,12 +347,28 @@ class DistKL:
         return KLObjective(n=self.n, log_prior=lp)
 
     @property
-    def equalities(self):
-        """([1'; A], [1; r]): the probability constraint always first
+    def equalities(self) -> EqualityConstraint:
+        """[1'; A] x = [1; r]: the probability constraint always first
         (Dist_KL.scala:193-209, 296-297)."""
-        ones = torch.ones((1, self.n), **self._opts())
-        return (torch.cat([ones, self.A], dim=0),
-                torch.cat([ones[0, :1], self.r]))
+        eq = sum_to_one(self.n, **self._opts())
+        if self.A.shape[0] == 0:
+            return eq
+        return eq.stack(EqualityConstraint(A=self.A, b=self.r))
+
+    @property
+    def inequalities(self) -> ConstraintSet:
+        """Rows of H plus positivity, on the whole space
+        (Dist_KL.scala:293): the strictly feasible set already has x > 0,
+        and phase-I stays free to relax positivity through its slack."""
+        return self._inequalities(self.u)
+
+    def _inequalities(self, u) -> ConstraintSet:
+        """``inequalities`` with bounds ``u`` (k,) or per instance (B, k)."""
+        blocks = []
+        if self.H.shape[0] > 0:
+            blocks.append(rows_leq(self.H, u))
+        blocks.append(positivity(self.n, **self._opts()))
+        return ConstraintSet(blocks=tuple(blocks))
 
     # -------------------------------------------------------------- dual side
     @property
@@ -472,9 +500,8 @@ class DistKL:
                                                polish_steps), 0)
 
     def _certify(self, u, r, xs, zs, polish_steps):
-        eq_A, _ = self.equalities
         b = torch.cat([u.new_ones((u.shape[0], 1)), r.to(u.dtype)], dim=1)
-        return kl_certify(self.H, u, eq_A, b, xs, z0=zs,
+        return kl_certify(self.H, u, self.equalities.A, b, xs, z0=zs,
                           polish_steps=polish_steps, prior=self.prior,
                           compare_input=False)
 
@@ -605,29 +632,37 @@ class DistKL:
         the reference's ``vmap(lambda u_i, x0_i: DistKL.create(n, H, u_i)
         .solve_jittable(x0_i, method, pars))``.
 
-        method: "fused" (K3, then the measured gap; falls back to
-        "BR_fast" for extra equality rows, a prior, or k not in {1, 2}),
-        "BR_fast" (the structured barrier), "dual_fast", "dual_fused" (K1)
-        or "dual_fused_cert" (K1 + the f64 finish).  Returns a batched
+        method: "BR" (the generic barrier), "PD" (primal-dual), "fused"
+        (K3, then the measured gap; falls back to "BR_fast" for extra
+        equality rows, a prior, or k not in {1, 2}), "BR_fast" (the
+        structured barrier), "dual" / "dual_BR" / "dual_PD" (the barrier or
+        primal-dual method on the dual), "dual_fast", "dual_fused" (K1) or
+        "dual_fused_cert" (K1 + the f64 finish).  Returns a batched
         Solution.
         """
         pars = pars or SolverParams()
         u, _ = self._bounds(u)
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
+        if method in _DUAL:
+            return self._solve_dual_batch(u, method, pars)
         if method == "dual_fast":
             return self._dual_newton_batch(u, pars)
         if method == "dual_fused":
             return self._dual_fused_batch(u, pars)
         if method == "dual_fused_cert":
             return self._certified_batch(u, pars)
-        if method not in ("fused", "BR_fast"):
+        if method not in ("BR", "PD", "fused", "BR_fast"):
             raise ValueError(f"unknown method: {method!r}")
         if feasible_points is None:
             raise ValueError(f"method={method!r} needs strictly feasible "
                              "points (B, n)")
         x0 = torch.as_tensor(feasible_points).to(**self._opts())
+        eqs = self.equalities
+        if method == "BR":
+            return barrier_solve(self.objective, self._inequalities(u), x0,
+                                 pars, eqs=eqs)
+        if method == "PD":
+            return primal_dual_solve(self.objective, self._inequalities(u),
+                                     x0, pars, eqs=eqs)
         k = self.H.shape[0]
         if method == "fused":
             # K3's closed-form algebra covers 1 <= k <= 2 rows, the
@@ -636,10 +671,17 @@ class DistKL:
             if (self.A.shape[0] == 0 and 1 <= k <= 2
                     and self.prior is None):
                 return self._fused_batch(u, x0, pars)
-        eq_A, eq_b = self.equalities
-        b = eq_b[None].expand(u.shape[0], -1)
-        return barrier_solve_structured(self.objective, self.H, u, eq_A, b,
+        b = eqs.b[None].expand(u.shape[0], -1)
+        return barrier_solve_structured(self.objective, self.H, u, eqs.A, b,
                                         x0, pars)
+
+    def _solve_dual_batch(self, u, method, pars) -> Solution:
+        """The barrier ("dual", "dual_BR") or primal-dual ("dual_PD")
+        method on the dual of each instance, bounds u (B, k)."""
+        return solve_dual(self.neg_dual_objective(u), self.num_ineq_dual,
+                          self.dual_dim, self.primal_optimum,
+                          method="PD" if method == "dual_PD" else "BR",
+                          pars=pars, batch=u.shape[0], device=self.H.device)
 
     def solve_jittable(self, feasible_point, method: str = "BR",
                        pars: SolverParams | None = None) -> Solution:
@@ -653,11 +695,15 @@ class DistKL:
     def solve(self, method: str = "dual",
               pars: SolverParams | None = None,
               feasible_point=None) -> Solution:
-        """Solve the problem.  Ported: "dual_fast", "dual_fused",
-        "dual_fused_cert", and "fused" / "BR_fast" from a given
-        ``feasible_point`` (the reference runs phase-I when none is given:
-        ROADMAP M7).  "dual" (the reference's default), "dual_BR",
-        "dual_PD", "BR" and "PD" raise NotImplementedError naming M7."""
+        """Solve the problem.
+
+        method: "dual" (the barrier on the closed-form dual), "dual_BR",
+        "dual_PD", "dual_fast", "dual_fused" (K1), "dual_fused_cert", "BR"
+        (primal barrier), "PD" (primal primal-dual), "fused" (K3) or
+        "BR_fast".  The primal routes run phase-I from the uniform point
+        unless ``feasible_point`` is given (Dist_KL.scala:307), and raise
+        ``InfeasibleProblemError`` when there is none.
+        """
         pars = pars or SolverParams()
         if method == "dual_fast":
             return self.solve_dual_newton(pars)
@@ -665,16 +711,55 @@ class DistKL:
             return self.solve_dual_fused(pars)
         if method == "dual_fused_cert":
             return self.solve_certified(pars)
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"method={method!r} is not ported yet: {_NOT_PORTED[method]}")
-        if method not in ("fused", "BR_fast"):
+        if method in _DUAL:
+            return _instance(self._solve_dual_batch(self.u[None], method,
+                                                    pars), 0)
+        if method not in ("BR", "PD", "fused", "BR_fast"):
             raise ValueError(f"unknown method: {method!r}")
         if feasible_point is None:
-            raise NotImplementedError(
-                f"method={method!r} without a feasible_point needs phase-I "
-                "(find_feasible_point), not ported yet: ROADMAP M7")
+            x0 = torch.full((1, self.n), 1.0 / self.n, **self._opts())
+            feasible_point = find_feasible_point(
+                self.inequalities, x0, pars, self.equalities)[0]
         return self.solve_jittable(feasible_point, method=method, pars=pars)
+
+    def feasibility(self, pars: SolverParams | None = None
+                    ) -> FeasibilityReport:
+        """Phase-I report for this problem's constraints, from the uniform
+        point (the reference's dist_kl.py:983-988)."""
+        pars = pars or SolverParams()
+        x0 = torch.full((1, self.n), 1.0 / self.n, **self._opts())
+        return _instance(feasibility_analysis(self.inequalities, x0, pars,
+                                              self.equalities), 0)
+
+    def feasibility_batch(self, u, pars: SolverParams | None = None):
+        """Fleet phase-I screen: per-instance bounds ``u`` (B, k) against
+        this problem's shared rows.  Returns ``(s_max (B,),
+        strictly_feasible (B,))``; ``s_max > 0`` certifies that no point
+        satisfies instance i's constraints (ConstraintSet.scala:571-572).
+
+        The shared equality system is eliminated ONCE (x = z0 + F v), the
+        all-linear set pulls back to shared rows with only the bounds
+        varying, and the exact low-rank phase-I runs over the batch of
+        bounds (the reference's dist_kl.py:990-1036)."""
+        rep = self._screen(u, pars or SolverParams())
+        return rep.s_max, rep.strictly_feasible
+
+    def _screen(self, u, pars) -> FeasibilityReport:
+        """``feasibility_batch``'s phase-I report in the reduced variables
+        v (x = z0 + F v), with its Newton step counts."""
+        u, _ = self._bounds(u)
+        B = u.shape[0]
+        ss = self.equalities.solution_space()
+        blocks = []
+        if self.H.shape[0] > 0:
+            blocks.append(LinearBlock(G=self.H @ ss.F, c=self.H @ ss.z0, ub=u,
+                                      label="rows"))
+        blocks.append(LinearBlock(G=-ss.F, c=-ss.z0,
+                                  ub=torch.zeros((self.n,), **self._opts()),
+                                  label="positivity"))
+        v0 = torch.zeros((B, ss.F.shape[1]), **self._opts())
+        return _phase1_linear_structured(ConstraintSet(blocks=tuple(blocks)),
+                                         v0, pars)
 
 
 def _joint_float_dtype(values):

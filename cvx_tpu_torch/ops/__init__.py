@@ -1,14 +1,29 @@
-"""Kernels and their plain PyTorch versions."""
+"""Kernels and their plain PyTorch versions, and the dense numerics core
+(Cholesky, equilibration, spectral, nullspace and KKT solves) of the
+generic interior-point solvers."""
 
 from .chol import (cholesky_batched, cholesky_batched_cuda,
                    cholesky_batched_plain)
+from .cholesky import (back_solve, chol_solve_factored, cholesky_solve,
+                       default_delta, forward_solve, regularized_cholesky,
+                       relative_residual, tri_solve)
+from .eigsolve import svd_solve, sym_solve_eig
+from .equilibrate import (check_symmetric, condition_number, hs_norm,
+                          ruiz_equilibrate)
+from .kkt import kkt_solve, lin_solve, sym_solve
 from .kl_barrier import (fused_final_t, fused_n_outer, kl_barrier_fused,
                          kl_barrier_fused_plain)
 from .kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                       kl_dual_fused_cert_plain, kl_dual_fused_plain)
+from .nullspace import SolutionSpace, solution_space
 
-__all__ = ["cholesky_batched", "cholesky_batched_cuda",
-           "cholesky_batched_plain", "fused_final_t", "fused_n_outer",
-           "kl_barrier_fused", "kl_barrier_fused_plain", "kl_dual_fused",
-           "kl_dual_fused_cert", "kl_dual_fused_cert_plain",
-           "kl_dual_fused_plain"]
+__all__ = ["SolutionSpace", "back_solve", "check_symmetric",
+           "chol_solve_factored", "cholesky_batched", "cholesky_batched_cuda",
+           "cholesky_batched_plain", "cholesky_solve", "condition_number",
+           "default_delta", "forward_solve", "fused_final_t",
+           "fused_n_outer", "hs_norm", "kkt_solve", "kl_barrier_fused",
+           "kl_barrier_fused_plain", "kl_dual_fused", "kl_dual_fused_cert",
+           "kl_dual_fused_cert_plain", "kl_dual_fused_plain", "lin_solve",
+           "regularized_cholesky", "relative_residual", "ruiz_equilibrate",
+           "solution_space", "svd_solve", "sym_solve", "sym_solve_eig",
+           "tri_solve"]

@@ -24,8 +24,7 @@ import math
 
 import torch
 
-from ..duality import _chol_nan
-from ..ops.cholesky import default_delta
+from ..ops.cholesky import _chol_nan, default_delta
 from .types import Solution, SolverParams
 
 

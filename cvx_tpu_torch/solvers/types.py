@@ -1,8 +1,9 @@
 """Solver configuration and result records.
 
-Counterpart of ``cvx_tpu/solvers/types.py`` (SolverParams, Solution), which
-re-designs cvx/SolverParams.scala (:24-46) and cvx/Solution.scala (:32-60).
-Records are dataclasses of tensors; "missing" diagnostics are NaN, and
+Counterpart of ``cvx_tpu/solvers/types.py``, which re-designs
+cvx/SolverParams.scala (:24-46), cvx/Solution.scala (:32-60) and
+cvx/OptimizationState.scala (:22-39).  Records are dataclasses of
+tensors with one entry per instance; "missing" diagnostics are NaN, and
 per-instance failure modes are boolean flags carried as data.
 """
 
@@ -20,9 +21,7 @@ class SolverParams:
 
     Defaults = the reference's standardParams {maxIter 1000, alpha 0.04,
     beta 0.8, tolSolver 1e-8, tolEqSolve 1e-1, tolFeas 1e-7, delta 1e-6}
-    (SolverParams.scala:35-46).  The KL dual routes read ``tol``,
-    ``tol_feas`` and ``dual_start``; the rest is kept for the routes still
-    to be ported.
+    (SolverParams.scala:35-46).
     """
 
     max_iter: int = 1000          # Newton iteration cap per inner solve
@@ -81,3 +80,49 @@ class Solution:
             self.stalled, self.STATUS_STALLED,
             torch.where(self.maxed_out, self.STATUS_MAXED_OUT,
                         self.STATUS_OK))
+
+
+@dataclass
+class NewtonResult:
+    """Result of one inner Newton solve, per instance."""
+
+    x: torch.Tensor
+    newton_decrement: torch.Tensor
+    norm_grad: torch.Tensor
+    eq_gap: torch.Tensor          # ||A x - b|| (NaN when no equalities)
+    iters: torch.Tensor
+    maxed_out: torch.Tensor       # bool: hit max_iter
+    stalled: torch.Tensor         # bool: line search exhausted
+
+
+@dataclass
+class OptState:
+    """Snapshot fed to termination criteria (OptimizationState.scala:
+    22-39), per instance."""
+
+    norm_grad: torch.Tensor
+    newton_decrement: torch.Tensor
+    duality_gap: torch.Tensor
+    eq_gap: torch.Tensor
+    obj_value: torch.Tensor
+    norm_dual_residual: torch.Tensor
+
+
+def standard_criterion(pars: SolverParams):
+    """Terminate when duality gap and equality gap are below tol
+    (CvxUtils.scala:61-70)."""
+
+    def crit(s: OptState):
+        return (s.duality_gap < pars.tol) & (s.eq_gap < pars.tol)
+
+    return crit
+
+
+def phase1_criterion(pars: SolverParams):
+    """Terminate as soon as the objective (max slack) is negative and the
+    equality gap is small (CvxUtils.scala:78-87)."""
+
+    def crit(s: OptState):
+        return (s.obj_value < 0.0) & (s.eq_gap < 1e-6)
+
+    return crit

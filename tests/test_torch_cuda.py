@@ -285,3 +285,64 @@ def test_k3_k4_wrappers_refuse_and_count(dev):
     assert (kl_barrier_fused.launches, cholesky_batched_cuda.launches) == (
         k3 + 1, k4 + 1)
     torch.cuda.synchronize()
+
+
+def _mixed_batch(n, B, seed=0):
+    """tests/test_round5.py's _mixed_batch: P(A) >= pA and P(A) <= qA,
+    qA < pA (infeasible) on every 4th instance."""
+    rng = np.random.default_rng(seed)
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    pA = rng.uniform(0.3, 0.5, B)
+    qA = pA + rng.uniform(0.05, 0.2, B)
+    bad = np.zeros(B, bool); bad[::4] = True
+    qA[bad] = pA[bad] - rng.uniform(0.05, 0.1, bad.sum())
+    return np.stack([-I_A, I_A]), np.stack([-pA, qA], axis=1), bad
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("method", ["dual", "BR", "PD"])
+def test_generic_core_on_the_card_matches_the_cpu(dev, method):
+    # the generic core (plain PyTorch, no kernel of ours) runs the same
+    # algorithm on the card.  solve() (the barrier on the dual) from its
+    # own start; the primal methods from a given strictly feasible point at
+    # tol = 1e-6, where every stopping decision sits far above the rounding
+    # floor: x to 1e-10 in f64, iters and the flags exactly
+    from cvx_tpu_torch import DistKL, SolverParams
+
+    n = 32
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    I_B = np.zeros(n); I_B[n // 2:] = 1.0
+    data = dict(H=np.stack([-I_A, I_B]), u=np.array([-0.36, 0.3]))
+    x0 = np.full(n, 0.35 / (n // 2 - 3))
+    x0[:3], x0[n // 2:] = 0.4 / 3, 0.25 / (n // 2)
+    out = {}
+    for d in ("cpu", dev):
+        prob = DistKL.create(n, **data, device=d)
+        out[str(d)] = (prob.solve() if method == "dual" else prob.solve(
+            method, SolverParams(tol=1e-6), feasible_point=x0))
+    cpu, gpu = out["cpu"], out[str(dev)]
+    assert gpu.x.device.type == "cuda"
+    dx = float((gpu.x.cpu() - cpu.x).abs().max())
+    assert dx <= 1e-10, dx
+    for flag in ("iters", "maxed_out", "stalled"):
+        assert torch.equal(getattr(gpu, flag).cpu(), getattr(cpu, flag)), (
+            flag, getattr(gpu, flag), getattr(cpu, flag))
+
+
+@pytest.mark.timeout(600)
+def test_feasibility_batch_on_the_card_matches_the_cpu(dev):
+    # the flags exactly; s_max to 1e-8, as against the reference (phase-I
+    # stops at the first point with slack below -tol_feas)
+    from cvx_tpu_torch import DistKL
+
+    n, B = 32, 40
+    H, U, bad = _mixed_batch(n, B)
+    out = {}
+    for d in ("cpu", dev):
+        prob = DistKL.create(n, H=H, u=np.zeros(2), device=d)
+        out[str(d)] = [t.cpu() for t in prob.feasibility_batch(U)]
+    (s_c, f_c), (s_g, f_g) = out["cpu"], out[str(dev)]
+    assert np.array_equal(s_g.numpy() > 0, bad)
+    assert torch.equal(f_g, f_c) and np.array_equal(f_g.numpy(), ~bad)
+    ds = float((s_g - s_c).abs().max())
+    assert ds <= 1e-8, ds
