@@ -16,6 +16,12 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
   the primal barrier or primal-dual method) and ``solve("fused")`` (phase-I,
   then K3) on one instance, ``solve_jittable_batch(method="BR")`` and
   ``feasibility_batch`` at 10,000 instances, and an infeasible problem;
+* phase 4c: the fleet screen (``DistKL.feasibility_screen_batch``, f32
+  and f64, 10,000 x n = 100, and the eq-fold family), the QP fleet
+  (``QP.solve_certified`` at (n, m, p, B) = (128, 64, 4, 512) and (1000,
+  500, 10, 100)), a resume of the first from a checkpoint on disk,
+  ``minimize`` with "BR", "PD" and "BR_fast", a DiagQP and an LP batch,
+  and the exact-f32 guard of the solvers, none of which launches K1-K4;
 
 times the kernels with CUDA events beside their plain versions, a library
 call where one computes the same function, and the least time the card
@@ -31,6 +37,7 @@ seeds.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -73,6 +80,12 @@ PRODUCTION = dict(max_iter=3, mu=55.0, tol=1e-8)   # bench.py's schedule
 # same instance (the barrier's gap bound m/t is <= 1e-8), and the host f64
 # certificate |gap| of each x
 GEN_DX, GEN_CERT = 1e-5, 1e-6
+# phase 4c: the fleet screen's bounds recomputed on the host from its x and
+# w, and |sum x - 1| (f32, f64); the QP family's residual contract
+# (tol_feas); a resumed and certified QP fleet against straight through
+SCREEN_F32, SCREEN_F64 = 1e-5, 1e-12
+TOL_FEAS = 1e-7
+RESUME_DX = 1e-6
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet; f64 outside the
 # tensor cores)
@@ -627,6 +640,339 @@ def generic_core(dev, kernels, H, U, x_cert):
              lambda: screen.feasibility_batch(Umt), int(steps.max())))
 
 
+def screen_family(B, n, seed=7):
+    """bench_scaling.py:772-777: H = [-1_A; 1_A] (|A| = 3), pA ~ U(0.3,
+    0.5), qA = pA + U(0.05, 0.2), every 10th instance infeasible with qA =
+    pA - U(0.05, 0.1); returns (H, U, bad)."""
+    rng = np.random.default_rng(seed)
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    pA = rng.uniform(0.3, 0.5, B)
+    qA = pA + rng.uniform(0.05, 0.2, B)
+    bad = np.zeros(B, bool); bad[::10] = True
+    qA[bad] = pA[bad] - rng.uniform(0.05, 0.1, bad.sum())
+    return np.stack([-I_A, I_A]), np.stack([-pA, qA], axis=1), bad
+
+
+def eq_fold_family(B, n, seed=2):
+    """tests/test_round5.py:458-490 at width B x n: the screen family with
+    pA ~ U(0.2, 0.4), every 8th instance infeasible, and one equality row
+    W x = r (W ~ U(0.5, 1.5)) consistent with instance 1's band; returns
+    (H, U, W, r, bad)."""
+    rng = np.random.default_rng(seed)
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    pA = rng.uniform(0.2, 0.4, B)
+    qA = pA + rng.uniform(0.05, 0.2, B)
+    bad = np.zeros(B, bool); bad[::8] = True
+    qA[bad] = pA[bad] - rng.uniform(0.05, 0.1, bad.sum())
+    W = rng.uniform(0.5, 1.5, n)
+    m1 = (pA[1] + qA[1]) / 2.0
+    xf = m1 * I_A / 3 + (1 - m1) * (1 - I_A) / (n - 3)
+    return (np.stack([-I_A, I_A]), np.stack([-pA, qA], axis=1), W[None, :],
+            np.array([W @ xf]), bad)
+
+
+def qp_fleet_data(n, m, p, B, seed):
+    """bench_scaling.py:871-881 from a numpy seed: P = M M' + I with M ~
+    N(0, 1/n); G, A ~ N(0, 1/n); b = 0; a_b ~ N(0, 1); ub_b ~ U(0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n)) / np.sqrt(n)
+    return dict(P=M @ M.T + np.eye(n), a=rng.standard_normal((B, n)),
+                G=rng.standard_normal((m, n)) / np.sqrt(n),
+                h=rng.uniform(0.5, 1.5, (B, m)),
+                A=rng.standard_normal((p, n)) / np.sqrt(n), b=np.zeros(p))
+
+
+class PNorm:
+    """f(x) = sum_j |x_j|^p with its diagonal Hessian in closed form (the
+    zoo's TestMinPNorm objective, tests/test_problems_zoo.py:41-54, with
+    the hess_diag that BR_fast needs)."""
+
+    def __init__(self, p):
+        self.p = p
+
+    def value(self, x):
+        return torch.sum(torch.abs(x) ** self.p, dim=-1)
+
+    def grad(self, x):
+        return self.p * torch.abs(x) ** (self.p - 1) * torch.sign(x)
+
+    def hess_diag(self, x):
+        return self.p * (self.p - 1) * torch.abs(x) ** (self.p - 2)
+
+    def hess(self, x):
+        return torch.diag_embed(self.hess_diag(x))
+
+
+def check_none(kernels, what, sync):
+    """Read the launch counters after a route that must launch none of
+    K1-K4."""
+    sync()
+    launches = kernel_counts(*kernels)
+    check(all(v == 0 for v in launches.values()),
+          f"{what} launched none of K1-K4 {launches}")
+
+
+def fleet_routes(dev, kernels, B_screen=10000, qp_shapes=((128, 64, 4, 512),
+                                                    (1000, 500, 10, 100)),
+           B_diag=1000, sync=torch.cuda.synchronize):
+    """Phase 4c: the fleet screen, the QP family, resume, minimize and the
+    exact-f32 guard through the entry points, each route with the launch
+    counters set to 0 just before it and read just after.  Returns phase
+    6's calls of the screen and the first QP fleet."""
+    import tempfile
+
+    from cvx_tpu_torch import QP, DiagQP, DistKL, LP, SolverParams, minimize
+    from cvx_tpu_torch import problem as pb
+    from cvx_tpu_torch.checkpoint import (load_pytree, resume_barrier,
+                                          save_pytree)
+    from cvx_tpu_torch.models import qp_certify
+    from cvx_tpu_torch.models.qp import _certified_solution
+    from cvx_tpu_torch.solvers import barrier_solve
+
+    print("phase 4c: the fleet screen, the QP family, resume, minimize")
+    rows = []
+    n = 100
+    # 1. the fleet screen, f32 and f64
+    H, U, bad = screen_family(B_screen, n)
+    f64 = dict(dtype=torch.float64, device=dev)
+    judge = DistKL.create(n, H=torch.tensor(H, **f64), u=torch.zeros(2, **f64))
+    s_max, strict = judge.feasibility_batch(
+        torch.tensor(U[:256], **f64), SolverParams(tol=1e-6, max_iter=60))
+    phase1_inf = (s_max > 0).cpu().numpy()
+    phase1_strict = strict.cpu().numpy()
+    for dtype, tol in ((torch.float32, SCREEN_F32), (torch.float64,
+                                                      SCREEN_F64)):
+        opts = dict(dtype=dtype, device=dev)
+        prob = DistKL.create(n, H=torch.tensor(H, **opts),
+                             u=torch.zeros(2, **opts))
+        Ut = torch.tensor(U, **opts)
+        prob.feasibility_screen_batch(Ut[:64])       # warm-up
+        sync()
+        zero_counts(*kernels)
+        t0 = time.perf_counter()
+        scr = prob.feasibility_screen_batch(Ut)
+        sync()
+        wall = time.perf_counter() - t0
+        check_none(kernels, f"the screen ({dtype})", sync)
+        x = scr.x.double().cpu().numpy()
+        w = scr.w.double().cpu().numpy()
+        slb = scr.s_lower.double().cpu().numpy()
+        sub = scr.s_upper.double().cpu().numpy()
+        und = int(scr.undecided.sum())
+        width = float(np.max(sub - slb))
+        print(f"  screen {dtype} {B_screen} x n={n}: {wall:.4f} s; "
+              f"undecided {und}; widest interval {width:.3e}")
+        check(np.array_equal(scr.infeasible.cpu().numpy(), bad) and und == 0,
+              f"screen {dtype}: infeasible exactly the constructed "
+              f"{int(bad.sum())} lanes, 0 undecided")
+        check(bool(np.all(slb <= sub)) and bool(np.all(x > 0))
+              and float(np.max(np.abs(x.sum(1) - 1.0))) <= tol,
+              f"screen {dtype}: s_lower <= s_upper, x > 0, |sum x - 1| <= "
+              f"{tol:g}")
+        sub_host = np.max(x @ H.T - U, axis=1)
+        slb_host = np.min(w @ H, axis=1) - np.sum(w * U, axis=1)
+        d_up = float(np.max(np.abs(sub_host - sub)))
+        d_lo = float(np.max(np.abs(slb_host - slb)))
+        check(d_up <= tol and d_lo <= tol,
+              f"screen {dtype}: s_upper from x and s_lower from w, "
+              f"recomputed in f64 on the host, within {tol:g} "
+              f"({d_up:.2e}, {d_lo:.2e})")
+        # the sign against the generic phase-I (f64, the screening
+        # tolerances of tests/test_round5.py:443) where the screen decided
+        dec = ~scr.undecided[:256].cpu().numpy()
+        check(np.array_equal(phase1_inf[dec],
+                             scr.infeasible[:256].cpu().numpy()[dec])
+              and np.array_equal(phase1_strict[dec],
+                                 scr.strictly_feasible[:256].cpu().numpy()
+                                 [dec]),
+              f"screen {dtype}: the sign of s agrees with feasibility_batch "
+              f"on 256 instances")
+        if dtype == torch.float32:
+            # the fixed schedule: 6 stages of 4 Newton and 16 polish steps
+            rows.append((f"screen f32 {B_screen} x n={n}",
+                         lambda p=prob, u=Ut: p.feasibility_screen_batch(u),
+                         6 * (4 + 16)))
+    # the eq-fold family: one equality row folded in as a +/- pair
+    He, Ue, We, re_, bad_e = eq_fold_family(B_screen, n)
+    prob = DistKL.create(n, H=torch.tensor(He, **f64),
+                         u=torch.zeros(2, **f64), A=torch.tensor(We, **f64),
+                         r=torch.tensor(re_, **f64))
+    sync()
+    zero_counts(*kernels)
+    t0 = time.perf_counter()
+    scr = prob.feasibility_screen_batch(torch.tensor(Ue, **f64))
+    sync()
+    wall = time.perf_counter() - t0
+    check_none(kernels, "the eq-fold screen", sync)
+    inf = scr.infeasible.cpu().numpy()
+    feas = scr.strictly_feasible.cpu().numpy()
+    xf = scr.x.cpu().numpy()[feas]
+    eq_err = float(np.abs(xf @ We[0] - re_[0]).max()) if feas.any() else 0.0
+    print(f"  eq-fold screen f64 {B_screen} x n={n}: {wall:.4f} s; "
+          f"undecided {int(scr.undecided.sum())}; strictly feasible "
+          f"{int(feas.sum())}; max |W x - r| {eq_err:.2e}")
+    check(bool(inf[bad_e].all()) and int(inf[~bad_e].sum()) == 0
+          and feas.any() and eq_err < 1e-4
+          and bool(((xf @ He.T) - Ue[feas] < 0).all()),
+          "eq-fold screen: every infeasible lane certified, no false flag, "
+          "feasible points meet W x = r within eq_tol 1e-4 and H x < u")
+
+    # 2. the QP fleet: f32 barrier + the certified f64 finish
+    pars = SolverParams(tol=1e-7, mu=20.0, kkt_method="chol", kkt_refine=1,
+                        max_iter=40)
+    certified = {}
+    for qn, qm, qp_, qB in qp_shapes:
+        data = qp_fleet_data(qn, qm, qp_, qB, seed=qn)
+        qp = QP.create(**data, dtype=torch.float32)
+        x0 = torch.zeros(qn, dtype=torch.float32, device=dev)
+        sync()
+        zero_counts(*kernels)
+        t0 = time.perf_counter()
+        sol = qp.solve_certified(x0, pars, method="BR")
+        sync()
+        wall = time.perf_counter() - t0
+        check_none(kernels, f"the QP fleet ({qn}, {qm}, {qp_}, {qB})", sync)
+        gap = float(sol.duality_gap.abs().max())
+        ineq, eq = float(sol.ineq_res.max()), float(sol.eq_gap.max())
+        print(f"  QP fleet (n, m, p, B) = ({qn}, {qm}, {qp_}, {qB}): "
+              f"{wall:.3f} s; Newton steps, the longest instance "
+              f"{int(sol.iters.max())}; max |gap| {gap:.3e}, ineq_res "
+              f"{ineq:.3e}, eq_res {eq:.3e}")
+        check(gap <= CERT_GAP and ineq <= TOL_FEAS and eq <= TOL_FEAS
+              and bool(torch.isfinite(sol.x).all())
+              and not bool(sol.stalled.any()),
+              f"QP fleet ({qn}, {qm}, {qp_}, {qB}): |gap| <= {CERT_GAP:g}, "
+              f"residuals <= {TOL_FEAS:g}, x finite, 0 stalled")
+        certified[(qn, qm, qp_, qB)] = (qp, sol)
+    # 3. resume on the card at the first shape: stop early, save, load,
+    # resume, certify
+    key = qp_shapes[0]
+    qp, straight = certified[key]
+    # the straight-through run's own f32 barrier flags, for comparison
+    straight_raw = qp.solve_jittable(torch.zeros(key[0], device=dev),
+                                     "BR", pars).stalled.sum()
+    x0 = torch.zeros(key[0], dtype=torch.float32, device=dev)
+    sync()
+    zero_counts(*kernels)
+    cut = barrier_solve(qp.objective, qp.inequalities,
+                        x0.expand(key[3], -1).clone(),
+                        dataclasses.replace(pars, outer_max_iter=3),
+                        eqs=qp.equalities)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/qp_fleet.npz"
+        save_pytree(path, cut)
+        loaded = load_pytree(path, cut)
+    res = resume_barrier(qp.objective, qp.inequalities, loaded, pars,
+                         eqs=qp.equalities)
+    cert = _certified_solution(
+        qp_certify(qp.P, qp.a, qp.G, qp.h, qp.A, qp.b, res.x, res.lam,
+                   res.nu), res, pars)
+    check_none(kernels, "the resume", sync)
+    dx = float((cert.x - straight.x).abs().max())
+    gap = float(cert.duality_gap.abs().max())
+    ineq, eq = float(cert.ineq_res.max()), float(cert.eq_gap.max())
+    print(f"  resume {key}: checkpoint gap max "
+          f"{float(cut.duality_gap.max()):.3e}; resumed and certified max "
+          f"|gap| {gap:.3e}, ineq_res {ineq:.3e}, eq_res {eq:.3e}; max |dx| "
+          f"against straight through {dx:.3e}; f32 barrier stall flags "
+          f"{int(res.stalled.sum())} resumed, {int(straight_raw)} straight "
+          f"through; certified stalled {int(cert.stalled.sum())}")
+    check(gap <= CERT_GAP and ineq <= TOL_FEAS and eq <= TOL_FEAS
+          and dx <= RESUME_DX and bool(torch.isfinite(cert.x).all())
+          and not bool(cert.stalled.any()),
+          f"resume: the contract held (|gap| <= {CERT_GAP:g}, residuals <= "
+          f"{TOL_FEAS:g}, x finite, 0 stalled) and x within {RESUME_DX:g} of "
+          "the straight-through run")
+    rows.append((f"QP fleet {key} solve_certified",
+                 lambda q=qp, z=x0: q.solve_certified(z, pars, method="BR"),
+                 int(straight.iters.max())))
+
+    # 4. minimize (the zoo's min p-norm on the simplex), DiagQP, LP
+    nz = 8
+    cnts = pb.ConstraintSet(blocks=(pb.positivity(nz),))
+    x_star = torch.full((nz,), 1.0 / nz, dtype=torch.float64)
+    for method in ("BR", "PD", "BR_fast"):
+        sync()
+        zero_counts(*kernels)
+        sol = minimize(PNorm(2.2), cnts, pb.sum_to_one(nz),
+                       x0=torch.zeros(nz, dtype=torch.float64),
+                       method=method)
+        check_none(kernels, f"minimize({method!r})", sync)
+        dx = float((sol.x.cpu() - x_star).abs().max())
+        check(sol.x.device.type == torch.device(dev).type and dx <= 1e-6
+              and not bool(sol.stalled),
+              f"minimize(method={method!r}) on the card: x* = 1/n within "
+              f"1e-6 ({dx:.2e}), not stalled")
+    rng = np.random.default_rng(11)
+    k = 4
+    c = rng.uniform(0.5, 1.5, n)
+    Ud = rng.uniform(0.0, 1.0, (k, n))
+    x_ref = np.full(n, 1.0 / n)
+    ubd = (Ud @ x_ref)[None, :] + rng.uniform(0.1, 0.3, (B_diag, k))
+    ad = rng.standard_normal((B_diag, n))
+    dq = DiagQP.create(c, ad, Ud, ubd, np.ones((1, n)), np.ones(1))
+    sync()
+    zero_counts(*kernels)
+    t0 = time.perf_counter()
+    dsol = dq.solve_certified(torch.tensor(x_ref, device=dev),
+                              SolverParams(tol=1e-9, kkt_method="chol"))
+    sync()
+    wall = time.perf_counter() - t0
+    check_none(kernels, "DiagQP.solve_certified", sync)
+    gap = float(dsol.duality_gap.abs().max())
+    print(f"  DiagQP solve_certified {B_diag} x n={n}, k={k}: {wall:.3f} s; "
+          f"max |gap| {gap:.3e}")
+    check(gap <= CERT_GAP and not bool(dsol.stalled.any()),
+          f"DiagQP batch: |gap| <= {CERT_GAP:g}, 0 stalled")
+    # the LP family of tests/test_qp_model.py::TestLP::
+    # test_lp_with_dense_row, batched: a = linspace(2, 1) + 1e-3 N(0, 1), the
+    # last coordinate capped at ub ~ U(0.2, 0.4) (the cap is active).  At
+    # tol 1e-7, as random costs on this route stall in the reference too
+    # (27 of 1,000 instances with four random rows on the CPU, the same 27
+    # in the port)
+    a_lp = np.linspace(2.0, 1.0, n)[None] + 1e-3 * rng.standard_normal(
+        (B_diag, n))
+    cap = np.zeros((1, n)); cap[0, n - 1] = 1.0
+    ub_lp = rng.uniform(0.2, 0.4, (B_diag, 1))
+    lp = LP(a_lp, U=cap, ub=ub_lp, A=np.ones((1, n)), b=np.ones(1))
+    sync()
+    zero_counts(*kernels)
+    lsol = lp.solve_jittable(torch.tensor(x_ref, device=dev),
+                             SolverParams(tol=1e-7))
+    check_none(kernels, "LP.solve_jittable", sync)
+    dcap = float(np.abs(lsol.x[:, -1].cpu().numpy() - ub_lp[:, 0]).max())
+    check(bool(torch.isfinite(lsol.x).all()) and not bool(lsol.stalled.any())
+          and dcap < 1e-3,
+          f"LP batch {B_diag} x n={n} at tol 1e-7: x finite, 0 stalled, the "
+          f"cap active within 1e-3 ({dcap:.2e})")
+
+    # 5. the exact-f32 guard: a caller's TF32 settings do not reach the
+    # solver, and come back after
+    seen = []
+
+    def fn(params, x):
+        seen.append(torch.get_float32_matmul_precision())
+        return 0.5 * torch.sum(x * x)
+
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        barrier_solve(pb.CustomObjective(fn=fn),
+                      pb.ConstraintSet(blocks=(pb.half_norm2_bounded(
+                          4, 2.0, dtype=torch.float32, device=dev),)),
+                      torch.full((2, 4), 0.1, device=dev),
+                      SolverParams(tol=1e-4))
+        back = (torch.get_float32_matmul_precision(),
+                torch.backends.cuda.matmul.allow_tf32)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(bool(seen) and set(seen) == {"highest"} and back == ("high", True),
+          "exact-f32 guard: 'highest' inside barrier_solve with the caller "
+          "at 'high' and TF32 on; the caller's settings back after")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -868,6 +1214,10 @@ def main() -> int:
     t0 = time.perf_counter()
     generic_routes = generic_core(dev, kernels, H, U, sol.x)
     print(f"  phase 4b wall {time.perf_counter() - t0:.1f} s")
+    # 4c. the fleet screen, the QP family, resume and minimize
+    t0 = time.perf_counter()
+    fleet_rows = fleet_routes(dev, kernels)
+    print(f"  phase 4c wall {time.perf_counter() - t0:.1f} s")
 
     # 5. times (CUDA events, in turns), with each kernel's bound
     print("phase 5: times (CUDA events)")
@@ -973,7 +1323,8 @@ def main() -> int:
              None),
             ("cholesky_batched cuda 4096 x 100",
              lambda: cholesky_batched(Xc, method="cuda"), 10, None),
-            *((g[0], g[1], 1, g[2]) for g in generic_routes)):
+            *((g[0], g[1], 1, g[2]) for g in generic_routes),
+            *((g[0], g[1], 1, g[2]) for g in fleet_rows)):
         wall, busy, ops = device_busy(fn, reps, warm=steps is None,
                                       raw=steps is not None)
         share = "not measured" if busy is None else f"{busy / wall:.3f}"

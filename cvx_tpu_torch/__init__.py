@@ -13,12 +13,20 @@ kernel in ``ops.kl_barrier``; the batched Cholesky
 generic interior-point core on a batch axis (``ops``, ``problem``,
 ``solvers``, ``duality.solve_dual``), through which every other ``DistKL``
 route runs (``solve()``, "BR", "PD", phase-I, ``feasibility_batch``).
-``DistKL`` puts a problem on the card unless the caller passes
-``device="cpu"``.  Importing the package builds nothing: the CUDA kernels
-are compiled at their first launch on a CUDA tensor.
+Also ported: the fleet screen (``DistKL.feasibility_screen_batch``),
+the problem API ``minimize``, the QP / DiagQP / LP family with its
+certified f64 finish (``models.qp``), checkpoint and resume
+(``checkpoint``), the dataclass tree helpers and the exact-f32 guard of
+every solver (``tree``), and the auxiliary ops and test fixtures.
+``DistKL``, ``QP``, ``DiagQP``, ``LP`` and ``minimize`` put a problem on
+the card unless the caller passes ``device="cpu"``.  Importing the
+package builds nothing: the CUDA kernels are compiled at their first
+launch on a CUDA tensor.
 """
 
-from .models import DistKL
+from .api import minimize
+from .models import LP, QP, DiagQP, DistKL
 from .solvers import Solution, SolverParams
 
-__all__ = ["DistKL", "Solution", "SolverParams"]
+__all__ = ["DiagQP", "DistKL", "LP", "QP", "Solution", "SolverParams",
+           "minimize"]

@@ -1,14 +1,109 @@
-"""Host-side certificates.
+"""Observability: profiling, solve counters, per-stage barrier history
+and the host-side KL certificate.
 
-Counterpart of ``kl_gap_certificate_np`` in ``cvx_tpu/diagnostics.py``
-(:63-144), copied because that module imports jax.  The rest of that
-module (profiling traces, solve statistics, barrier history) is ROADMAP
-M10.
+Counterpart of ``cvx_tpu/diagnostics.py`` (the reference's Logger and
+debugLevel dumps, SURVEY.md sections 5.1/5.5):
+
+  * ``trace(log_dir)``: a ``torch.profiler`` context around a solve that
+    writes a Chrome trace (view in Perfetto or chrome://tracing);
+  * ``solve_stats``: summary counters of a (batched) Solution;
+  * ``barrier_history``: a host loop of one-stage barrier solves that
+    records the state after every continuation stage;
+  * ``kl_gap_certificate_np``: pure NumPy f64, copied because the
+    reference's module imports jax.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import os
+import tempfile
+from typing import Any
+
 import numpy as np
+import torch
+
+from .problem.constraint_set import ConstraintSet
+from .solvers.barrier import barrier_solve
+from .solvers.types import SolverParams
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Profile everything inside the context with ``torch.profiler`` (the
+    CPU, and the card where there is one) and write the Chrome trace to
+    ``log_dir/trace.json`` (default: a directory under the temporary
+    directory).  Yields the directory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "cvx_tpu_torch_trace")
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield log_dir
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def solve_stats(sol) -> dict:
+    """Summary counters for a Solution (batched or single).
+
+    ``stalled_frac``/``maxed_out_frac`` surface the per-instance failure
+    flags (Solution.status), so a batch with poisoned instances reports
+    them instead of silently returning non-converged iterates."""
+    def host(v):
+        return v.detach().cpu().numpy()
+
+    iters = host(sol.iters)
+    gap = host(sol.duality_gap)
+    stalled = host(sol.stalled)
+    return {
+        "num_instances": int(iters.size),
+        "newton_iters_total": int(iters.sum()),
+        "newton_iters_mean": float(iters.mean()),
+        "newton_iters_max": int(iters.max()),
+        "gap_max": float(np.max(gap)),
+        "gap_median": float(np.median(gap)),
+        "maxed_out_frac": float(np.mean(host(sol.maxed_out))),
+        "stalled_frac": float(np.mean(stalled)),
+        "stalled_instances": np.flatnonzero(
+            np.atleast_1d(stalled)).tolist()[:32],
+    }
+
+
+def barrier_history(obj: Any, cnts: ConstraintSet, x0,
+                    pars: SolverParams | None = None, eqs=None,
+                    max_stages: int = 20) -> list[dict]:
+    """Run the barrier continuation of one instance stage by stage (a
+    host loop over t), recording gap / objective / equality error /
+    Newton iterations after each stage.  ``x0`` (n,) or (1, n).  A
+    debugging tool: the production solver is ``barrier_solve``."""
+    pars = pars or SolverParams()
+    history = []
+    x = x0 if x0.dim() == 2 else x0[None]
+    t = 1.0
+    one_stage = dataclasses.replace(pars, outer_max_iter=1)
+    for stage in range(max_stages):
+        sol = barrier_solve(obj, cnts, x, one_stage, eqs=eqs, t0=t)
+        x = sol.x
+        rec = {
+            "stage": stage,
+            "t": t,
+            "gap": float(sol.duality_gap[0]),
+            "obj": float(obj.value(x)[0]),
+            "eq_gap": float(sol.eq_gap[0]),
+            "newton_iters": int(sol.iters[0]),
+        }
+        history.append(rec)
+        if rec["gap"] < float(pars.tol):
+            break
+        t *= float(pars.mu)
+    return history
 
 
 def kl_gap_certificate_np(X, H, u, steps: int = 10, prior=None):

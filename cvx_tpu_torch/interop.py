@@ -7,7 +7,8 @@ blocks, equalities, linear and quadratic objectives, constraint sets) are
 arrays under the reference's field names, so moving a problem across is
 a copy of those fields.  Each helper takes any object with those names.
 A ``NonlinearBlock`` or ``CustomObjective`` is a function, not data: the
-port's is built from its torch ``fn`` and ``params``.
+port's is built from its torch ``fn`` and ``params``.  The QP family and
+``Solution`` records cross the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from .models.dist_kl import DistKL
+from .models.qp import QP, DiagQP
 from .problem.constraint_set import ConstraintSet
 from .problem.constraints import LinearBlock, QuadBlock
 from .problem.equality import EqualityConstraint
@@ -100,6 +102,36 @@ def distkl_from_numpy(d, *, device="cuda", dtype=None) -> DistKL:
 
     return DistKL(H=to(H), u=to(d.u), A=to(d.A), r=to(d.r), n=int(d.n),
                   prior=None if d.prior is None else to(d.prior))
+
+
+def qp_from_numpy(q, *, device="cuda", dtype=None) -> QP:
+    """The port's ``QP`` from the fields P, a, G, h, A, b of a reference
+    ``QP`` (a, h, b may carry a leading batch axis); ``dtype`` defaults to
+    the arrays' joint floating dtype, ``device`` to the card."""
+    return QP.create(*(np.asarray(getattr(q, k))
+                       for k in ("P", "a", "G", "h", "A", "b")),
+                     dtype=dtype, device=device)
+
+
+def diagqp_from_numpy(q, *, device="cuda", dtype=None) -> DiagQP:
+    """The port's ``DiagQP`` from the fields c, a, U, ub, A, b of a
+    reference ``DiagQP`` (or an ``LP``)."""
+    return DiagQP.create(*(np.asarray(getattr(q, k))
+                           for k in ("c", "a", "U", "ub", "A", "b")),
+                         dtype=dtype, device=device)
+
+
+def solution_from_numpy(sol, *, device="cuda") -> Solution:
+    """The port's ``Solution`` from the fields of a reference one (arrays
+    anything ``np.asarray`` takes, each keeping its dtype; a missing
+    ``ineq_res`` stays None)."""
+    def leaf(name):
+        v = getattr(sol, name, None)
+        return None if v is None else torch.from_numpy(
+            np.array(v)).to(device)
+
+    return Solution(**{f.name: leaf(f.name)
+                       for f in dataclasses.fields(Solution)})
 
 
 def solution_to_numpy(sol: Solution) -> dict:

@@ -1,5 +1,10 @@
-"""Model zoo: the dual side of Dist_KL (KL distance minimization)."""
+"""Model zoo: Dist_KL (KL distance minimization, both sides, and its
+fleet screen) and the QP / DiagQP / LP family."""
 
-from .dist_kl import DistKL, KLCertificate, kl_certify
+from .dist_kl import (DistKL, FeasibilityScreen, KLCertificate, kl_certify,
+                      kl_feasibility_screen)
+from .qp import LP, QP, DiagQP, QPCertificate, qp_certify
 
-__all__ = ["DistKL", "KLCertificate", "kl_certify"]
+__all__ = ["DiagQP", "DistKL", "FeasibilityScreen", "KLCertificate", "LP",
+           "QP", "QPCertificate", "kl_certify", "kl_feasibility_screen",
+           "qp_certify"]

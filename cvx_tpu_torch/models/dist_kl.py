@@ -53,6 +53,7 @@ from ..solvers.phase1 import (FeasibilityReport, _phase1_linear_structured,
 from ..solvers.primal_dual import primal_dual_solve
 from ..solvers.structured import barrier_solve_structured
 from ..solvers.types import Solution, SolverParams
+from ..tree import exact_f32, instance
 
 _DUAL = ("dual", "dual_BR", "dual_PD")
 
@@ -273,14 +274,6 @@ def _stalled(x, gap, ineq, tol, tol_feas, eq=None):
     return ~torch.all(torch.isfinite(x), dim=-1) | ~ok
 
 
-def _instance(rec, i: int):
-    """One instance of a batched record (a Solution or a
-    FeasibilityReport)."""
-    return type(rec)(**{f.name: (None if getattr(rec, f.name) is None
-                                 else getattr(rec, f.name)[i])
-                        for f in dataclasses.fields(rec)})
-
-
 @dataclass
 class DistKL:
     """The KL-minimization problem (canonical form: empty blocks allowed).
@@ -445,7 +438,7 @@ class DistKL:
         from z = dual_start, then x = Q(z) and the measured gap f(x) -
         g(z).  The route past dual dim 16, where K1 does not reach."""
         pars = pars or SolverParams()
-        return _instance(self._dual_newton_batch(self.u[None], pars, steps),
+        return instance(self._dual_newton_batch(self.u[None], pars, steps),
                          0)
 
     def _dual_fused_batch(self, u, pars, steps=16, r=None) -> Solution:
@@ -479,7 +472,7 @@ class DistKL:
         dual dim k + 1 + mE <= 16; larger shapes fall back to
         ``solve_dual_newton``, as in the reference."""
         pars = pars or SolverParams()
-        return _instance(self._dual_fused_batch(self.u[None], pars, steps),
+        return instance(self._dual_fused_batch(self.u[None], pars, steps),
                          0)
 
     def _certified_batch(self, u, pars, steps=16, polish_steps=2):
@@ -496,7 +489,7 @@ class DistKL:
         "dual_fused_cert"), certified to gap <= pars.tol with measured
         residuals <= pars.tol_feas."""
         pars = pars or SolverParams()
-        return _instance(self._certified_batch(self.u[None], pars, steps,
+        return instance(self._certified_batch(self.u[None], pars, steps,
                                                polish_steps), 0)
 
     def _certify(self, u, r, xs, zs, polish_steps):
@@ -689,7 +682,7 @@ class DistKL:
         route: ``solve_jittable_batch`` with one instance."""
         fp = None if feasible_point is None else \
             torch.as_tensor(feasible_point)[None]
-        return _instance(self.solve_jittable_batch(self.u[None], fp, method,
+        return instance(self.solve_jittable_batch(self.u[None], fp, method,
                                                    pars), 0)
 
     def solve(self, method: str = "dual",
@@ -712,7 +705,7 @@ class DistKL:
         if method == "dual_fused_cert":
             return self.solve_certified(pars)
         if method in _DUAL:
-            return _instance(self._solve_dual_batch(self.u[None], method,
+            return instance(self._solve_dual_batch(self.u[None], method,
                                                     pars), 0)
         if method not in ("BR", "PD", "fused", "BR_fast"):
             raise ValueError(f"unknown method: {method!r}")
@@ -728,7 +721,7 @@ class DistKL:
         point (the reference's dist_kl.py:983-988)."""
         pars = pars or SolverParams()
         x0 = torch.full((1, self.n), 1.0 / self.n, **self._opts())
-        return _instance(feasibility_analysis(self.inequalities, x0, pars,
+        return instance(feasibility_analysis(self.inequalities, x0, pars,
                                               self.equalities), 0)
 
     def feasibility_batch(self, u, pars: SolverParams | None = None):
@@ -743,6 +736,48 @@ class DistKL:
         bounds (the reference's dist_kl.py:990-1036)."""
         rep = self._screen(u, pars or SolverParams())
         return rep.s_max, rep.strictly_feasible
+
+    def feasibility_screen_batch(self, u, *, t0: float = 4.0,
+                                 mu_t: float = 4.0, stages: int = 6,
+                                 newton_steps: int = 4,
+                                 polish_steps: int = 16,
+                                 eq_tol: float = 1e-4) -> "FeasibilityScreen":
+        """Fleet phase-I screen: the entropy-smoothed GAME dual, for
+        per-instance bounds ``u`` (B, k) against this problem's rows
+        (the reference's dist_kl.py:1038-1118).
+
+        By LP duality on the simplex
+
+            s* = min_{x in simplex} max_i (H_i x - u_i)
+               = max_{w in simplex_k} [ min_j (w'H)_j - w'u ],
+
+        and ANY primal/dual pair gives MEASURED certificates s_lower <= s*
+        <= s_upper, so the screen needs no convergence proof to be sound.
+        ``s_upper < 0``: strictly feasible (x is the point: strictly
+        positive, sums to one, H x < u); ``s_lower > 0``: INFEASIBLE (w
+        proves it); neither: ``undecided`` (|s*| below the smoothing floor
+        ~ log(n)/t_final; escalate those instances to
+        ``feasibility_batch``).  The schedule is fixed (``stages`` stages
+        t <- mu_t t of ``newton_steps`` Newton steps and ``polish_steps``
+        primal steps), so instances do not couple.
+
+        Extra equality rows A x = r fold in as the +/- row pairs A x <= r
+        + eq_tol, -A x <= -r + eq_tol (the reference's eqs-as-inequalities,
+        ConstraintSet.scala:326-347): ``strictly_feasible`` then certifies
+        a point meeting the equalities within eq_tol, ``infeasible`` the
+        original problem.  s* is the game value over the CLOSED simplex,
+        while ``feasibility_batch``'s s_max also slacks positivity: the
+        signs agree, the magnitudes need not.
+        """
+        u, _ = self._bounds(u)
+        H = self.H
+        if self.A.shape[0] > 0:
+            H = torch.cat([H, self.A, -self.A], dim=0)
+            pad = torch.cat([self.r + eq_tol, -self.r + eq_tol])
+            u = torch.cat([u, pad[None].expand(u.shape[0], -1)], dim=1)
+        return kl_feasibility_screen(H, u, t0=t0, mu_t=mu_t, stages=stages,
+                                     newton_steps=newton_steps,
+                                     polish_steps=polish_steps)
 
     def _screen(self, u, pars) -> FeasibilityReport:
         """``feasibility_batch``'s phase-I report in the reduced variables
@@ -775,3 +810,158 @@ def _joint_float_dtype(values):
     for d in dtypes[1:]:
         out = torch.promote_types(out, d)
     return out
+
+
+@dataclass
+class FeasibilityScreen:
+    """Batched result of :meth:`DistKL.feasibility_screen_batch`.
+
+    ``s_lower <= s* <= s_upper`` are MEASURED certificates of the game
+    value s* = min_{x in simplex} max_i (H_i x - u_i); the flags are the
+    per-instance decisions (``undecided``: the interval straddles 0)."""
+
+    s_lower: torch.Tensor            # (B,)
+    s_upper: torch.Tensor            # (B,)
+    x: torch.Tensor                  # (B, n) strictly positive, sums to one
+    w: torch.Tensor                  # (B, k) dual weights on the simplex
+    strictly_feasible: torch.Tensor  # (B,) bool: s_upper < 0
+    infeasible: torch.Tensor         # (B,) bool: s_lower > 0
+    undecided: torch.Tensor          # (B,) bool
+
+
+@exact_f32
+def kl_feasibility_screen(H, u, *, t0: float = 4.0, mu_t: float = 4.0,
+                          stages: int = 6, newton_steps: int = 4,
+                          polish_steps: int = 16) -> FeasibilityScreen:
+    """Entropy-smoothed game-dual feasibility screen (the reference's
+    dist_kl.py:1135-1313): ``H`` (k, n) shared rows, ``u`` (B, k)
+    per-instance bounds.  Every stage runs both halves over all B
+    instances at once:
+
+    * LOWER bound: damped Gauss-Newton ascent of the x-smoothed dual on
+      softmax logits theta (any iterate maps to a valid w in the simplex,
+      so every stage's bound is sound), the tiny systems through
+      ``duality._small_solve``, and a fixed 5-candidate line search;
+    * UPPER bound: ``polish_steps`` exponentiated-gradient steps in log
+      space on the w-smoothed max violation (1/t) logsumexp(t(Hx - u)),
+      from the better of the running best x and the dual recovery
+      x(w) = softmax(-t w'H): where rows cancel along the optimal w (the
+      anti-parallel +/- rows of an equality pair) x(w) degenerates to
+      uniform, and only the primal descent finds the feasible band.
+
+    Bounds are the running best across stages.  The contractions run at
+    full f32 precision (``exact_f32``).
+    """
+    H = torch.as_tensor(H)
+    dtype, dev = H.dtype, H.device
+    k, n = H.shape
+    u = torch.as_tensor(u).to(dtype=dtype, device=dev)
+    logn = math.log(n)
+    ts = [float(t0) * float(mu_t) ** j for j in range(stages)]
+    eye = torch.eye(k, dtype=dtype, device=dev)
+    eps = torch.finfo(dtype).eps
+    tiny = float(torch.finfo(torch.float32).tiny)
+    damp = 64.0 * eps
+    # exponentiated-gradient step: |log-space update| <= eta * max|H|
+    eta = 1.0 / (torch.amax(torch.abs(H)) + tiny)
+    # the returned x seeds barrier solves, whose log(x) cannot take the
+    # exact zeros softmax underflows to at high t: mix in a vanishing
+    # uniform mass BEFORE measuring, so s_upper certifies the point
+    # returned
+    delta = 32.0 * eps
+
+    def wa(theta):
+        w = torch.softmax(theta, dim=-1)
+        return w, w @ H
+
+    def phi(theta, t):
+        # smoothed dual at candidates (B, L, k):
+        # -(1/t)(logsumexp(-t w'H) - log n) - w'u
+        w, a = wa(theta)
+        inner = -(torch.logsumexp(-t * a, dim=-1) - logn) / t
+        return inner - (w * u[:, None, :]).sum(dim=-1)
+
+    def lower(theta):
+        # MEASURED (unsmoothed) dual certificate at the iterate
+        w, a = wa(theta)
+        return torch.amin(a, dim=-1) - (w * u).sum(dim=-1), w
+
+    def viol(x):
+        return x @ H.T - u
+
+    def mix(x):
+        return (1.0 - delta) * x + (delta / n)
+
+    B = u.shape[0]
+    theta = torch.zeros((B, k), dtype=dtype, device=dev)
+    x = torch.full((B, n), 1.0 / n, dtype=dtype, device=dev)
+    s_lb, w = lower(theta)
+    s_ub = torch.amax(viol(x), dim=-1)
+    rows = torch.arange(B, device=dev)
+    for t in ts:
+        for _ in range(newton_steps):
+            # GAUSS-NEWTON metric: phi(softmax(theta)) is not concave in
+            # theta, so the NSD w-space Hessian -t H (diag(x) - x x') H'
+            # is pulled back through the softmax Jacobian J = diag(w) -
+            # w w' (PSD as J Mw J).  wi is loop-local: w carries the
+            # running-best certificate, and the returned w must reproduce
+            # s_lower
+            wi, a = wa(theta)
+            x_t = torch.softmax(-t * a, dim=-1)
+            hx = x_t @ H.T
+            hv = hx - u                                   # grad_w phi
+            g = wi * hv - wi * (wi * hv).sum(dim=-1, keepdim=True)
+            Mw = t * ((H * x_t[:, None, :]) @ H.T
+                      - hx[:, :, None] * hx[:, None, :])
+            JM = wi[:, :, None] * Mw - wi[:, :, None] * (
+                wi[:, None, :] @ Mw)
+            Hm = (JM * wi[:, None, :]
+                  - (JM @ wi[:, :, None]) * wi[:, None, :])
+            Hm = 0.5 * (Hm + Hm.mT)                       # exact symmetry
+            # the damping must dominate the f32 rounding of Hm's own
+            # construction (~eps * max|Mw| ~ eps * t), not just its trace
+            lam = damp * (torch.diagonal(Hm, dim1=1, dim2=2).sum(dim=-1) / k
+                          + 1.0 + torch.amax(torch.abs(Hm), dim=(1, 2)))
+            d = _small_solve(Hm + lam[:, None, None] * eye, g)
+            # a residual non-finite direction falls back to the gradient
+            d = torch.where(torch.all(torch.isfinite(d), dim=-1,
+                                      keepdim=True), d, g)
+            gn = g / (torch.sqrt((g * g).sum(dim=-1, keepdim=True)) + tiny)
+            # cap the step in logit space: a saturated softmax flattens
+            # Hm to ~0 and the damped solve emits an enormous d
+            dn = torch.sqrt((d * d).sum(dim=-1, keepdim=True))
+            d = d * torch.clamp(10.0 / (dn + tiny), max=1.0)
+            cands = torch.stack([theta + alpha * d
+                                 for alpha in (1.0, 0.25, 0.0625)]
+                                + [theta + gn, theta], dim=1)
+            best = torch.argmax(phi(cands, t), dim=1)
+            theta = cands[rows, best]
+            # recenter (softmax-invariant) and clip: logits stay finite;
+            # -60 still represents weight ~ 1e-26
+            theta = torch.clamp(
+                theta - torch.amax(theta, dim=-1, keepdim=True), -60.0, 0.0)
+        lb, wt = lower(theta)
+        w = torch.where((lb > s_lb)[:, None], wt, w)
+        s_lb = torch.maximum(s_lb, lb)
+        # primal polish in LOG space (x(w) underflows to exact 0 at high
+        # t), from the better of the running best x and x(w)
+        _, a = wa(theta)
+        lw = torch.log_softmax(-t * a, dim=-1)
+        xw = mix(torch.exp(lw))
+        ub_w = torch.amax(viol(xw), dim=-1)
+        take = (ub_w < s_ub)[:, None]
+        lx = torch.where(take, lw, torch.log(torch.clamp_min(x, tiny)))
+        x = torch.where(take, xw, x)
+        s_ub = torch.minimum(s_ub, ub_w)
+        for _ in range(polish_steps):
+            sig = torch.softmax(t * viol(torch.exp(lx)), dim=-1)
+            lx = torch.log_softmax(lx - eta * (sig @ H), dim=-1)
+            xp = mix(torch.exp(lx))
+            ub_p = torch.amax(viol(xp), dim=-1)
+            x = torch.where((ub_p < s_ub)[:, None], xp, x)
+            s_ub = torch.minimum(s_ub, ub_p)
+    feas = s_ub < 0.0
+    infeas = s_lb > 0.0
+    return FeasibilityScreen(s_lower=s_lb, s_upper=s_ub, x=x, w=w,
+                             strictly_feasible=feas, infeasible=infeas,
+                             undecided=~(feas | infeas))

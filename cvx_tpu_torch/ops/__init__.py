@@ -1,6 +1,7 @@
-"""Kernels and their plain PyTorch versions, and the dense numerics core
+"""Kernels and their plain PyTorch versions, the dense numerics core
 (Cholesky, equilibration, spectral, nullspace and KKT solves) of the
-generic interior-point solvers."""
+generic interior-point solvers, free-variable elimination, scalar root
+finding and test matrices."""
 
 from .chol import (cholesky_batched, cholesky_batched_cuda,
                    cholesky_batched_plain)
@@ -16,8 +17,15 @@ from .kl_barrier import (fused_final_t, fused_n_outer, kl_barrier_fused,
 from .kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                       kl_dual_fused_cert_plain, kl_dual_fused_plain)
 from .nullspace import SolutionSpace, solution_space
+from .reduction import (UnsolvableSystemError, free_coordinates,
+                        pad_solution, reduce_kkt)
+from .scalar import bisect, newton_1d
+from .testmat import (decaying_spectrum, nasty_rhs, random_orthogonal,
+                      random_spd, sign_combination_matrix,
+                      sign_combination_matrix_padded)
 
-__all__ = ["SolutionSpace", "back_solve", "check_symmetric",
+__all__ = ["SolutionSpace", "UnsolvableSystemError", "back_solve", "bisect",
+           "check_symmetric",
            "chol_solve_factored", "cholesky_batched", "cholesky_batched_cuda",
            "cholesky_batched_plain", "cholesky_solve", "condition_number",
            "default_delta", "forward_solve", "fused_final_t",
@@ -26,4 +34,7 @@ __all__ = ["SolutionSpace", "back_solve", "check_symmetric",
            "kl_dual_fused_cert_plain", "kl_dual_fused_plain", "lin_solve",
            "regularized_cholesky", "relative_residual", "ruiz_equilibrate",
            "solution_space", "svd_solve", "sym_solve", "sym_solve_eig",
-           "tri_solve"]
+           "tri_solve", "decaying_spectrum", "free_coordinates",
+           "nasty_rhs", "newton_1d", "pad_solution", "random_orthogonal",
+           "random_spd", "reduce_kkt", "sign_combination_matrix",
+           "sign_combination_matrix_padded"]

@@ -31,6 +31,7 @@ import torch
 from torch.func import grad, jacfwd, vmap
 
 from ..ops._batch import lead, mv, take, take_params
+from ..ops.testmat import sign_combination_matrix_padded
 
 
 def over_points(f, params, param_dims, x):
@@ -316,14 +317,7 @@ def half_norm2_bounded(n: int, ub: float, dtype=torch.float64,
 def abs_sum_bounded(n: int, p: int, q: int, ub: float, dtype=torch.float64,
                     device=None) -> LinearBlock:
     """|x_p| + ... + |x_{q-1}| <= ub via the 2^(q-p) sign-combination rows
-    (Constraints.scala:252-296).  Needs ``ops.testmat``, which is not
-    ported yet (ROADMAP M7d)."""
-    try:
-        from ..ops.testmat import sign_combination_matrix_padded
-    except ImportError:
-        raise NotImplementedError(
-            "abs_sum_bounded needs ops.testmat, not ported yet: ROADMAP M7d "
-            "(ops/testmat.py)") from None
+    (Constraints.scala:252-296)."""
     G = torch.as_tensor(sign_combination_matrix_padded(n, p, q), dtype=dtype,
                         device=device)
     m = G.shape[0]

@@ -18,6 +18,7 @@ import torch
 
 from ..problem.constraint_set import ConstraintSet
 from ..problem.equality import EqualityConstraint
+from ..tree import exact_f32
 from .newton import NewtonProblem, _no_stop, _run
 from .types import OptState, Solution, SolverParams
 
@@ -31,20 +32,31 @@ def promote_points(x0, *others):
     return x0.to(dtype)
 
 
+def initial_t(t0, B, dtype, device):
+    """The first barrier parameter of each of B instances: ``t0`` a number
+    or a (B,) tensor."""
+    if isinstance(t0, torch.Tensor):
+        return t0.to(dtype=dtype, device=device).expand(B).clone()
+    return torch.full((B,), float(t0), dtype=dtype, device=device)
+
+
+@exact_f32
 def barrier_solve(obj, cnts: ConstraintSet, x0, pars: SolverParams | None = None,
                   eqs: EqualityConstraint | None = None,
                   criterion: Callable | None = None,
                   stop_inner: Callable | None = None,
-                  t0: float = 1.0) -> Solution:
+                  t0: float | torch.Tensor = 1.0) -> Solution:
     """Minimize ``obj`` s.t. ``cnts`` (and ``A x = b``) from STRICTLY
     FEASIBLE points ``x0`` (B, n) by the barrier method.
 
     ``criterion(OptState) -> bool (B,)`` is the outer termination test
     (BarrierSolver.scala:87,144); default: duality gap m/t < tol and
     equality gap < max(tol, 100 eps).  ``stop_inner(x) -> bool (B,)`` ends
-    the inner Newton solves early (phase-I).  Inner stalls do not abort
-    the continuation; a stall while the gap bound m/t is still above
-    sqrt(max(tol, 50 eps)) marks the instance stalled.
+    the inner Newton solves early (phase-I).  ``t0``, the first barrier
+    parameter, is a number or one per instance (B,) (a resumed batch).
+    Inner stalls do not abort the continuation; a stall while the gap
+    bound m/t is still above sqrt(max(tol, 50 eps)) marks the instance
+    stalled.
     """
     pars = pars or SolverParams()
     m = cnts.m
@@ -66,7 +78,7 @@ def barrier_solve(obj, cnts: ConstraintSet, x0, pars: SolverParams | None = None
 
     nan = full(math.nan)
     x = x0
-    t = full(float(t0))
+    t = initial_t(t0, B, dtype, dev)
     gap, eq_gap, fval = full(math.inf), full(math.inf), full(math.inf)
     it = full(0, torch.long)
     n_newton = full(0, torch.long)

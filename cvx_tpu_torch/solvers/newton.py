@@ -26,6 +26,7 @@ import torch
 
 from ..ops._batch import lead, mv
 from ..ops.kkt import kkt_solve, sym_solve
+from ..tree import exact_f32
 from .types import NewtonResult, SolverParams
 
 
@@ -201,6 +202,7 @@ def _run(P: NewtonProblem, x0, pars, active, restrict, eq) -> NewtonResult:
                         stalled=out["stalled"])
 
 
+@exact_f32
 def newton_minimize(fgh: Callable, in_set: Callable, x0, pars: SolverParams,
                     stop_fn: Callable | None = None,
                     value_fn: Callable | None = None) -> NewtonResult:
@@ -219,6 +221,7 @@ def newton_minimize(fgh: Callable, in_set: Callable, x0, pars: SolverParams,
     return _run(P, x0, pars, None, None, eq=False)
 
 
+@exact_f32
 def newton_minimize_eq(fgh: Callable, in_set: Callable, x0, A, b,
                        pars: SolverParams, stop_fn: Callable | None = None,
                        value_fn: Callable | None = None) -> NewtonResult:

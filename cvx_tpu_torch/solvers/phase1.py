@@ -30,6 +30,7 @@ from ..problem.constraint_set import ConstraintSet, _cat_rows
 from ..problem.constraints import LinearBlock
 from ..problem.equality import EqualityConstraint
 from ..problem.objective import LinearObjective
+from ..tree import exact_f32
 from .barrier import barrier_solve
 from .newton import ls_steps
 from .types import SolverParams, phase1_criterion
@@ -103,6 +104,7 @@ def _slack_objective(n: int, dtype, device) -> LinearObjective:
     return LinearObjective(a=a, r=torch.zeros((), dtype=dtype, device=device))
 
 
+@exact_f32
 def _phase1_linear_structured(cnts: ConstraintSet, x0,
                               pars: SolverParams) -> FeasibilityReport:
     """Phase-I for ALL-LINEAR constraint sets by exact low-rank Newton

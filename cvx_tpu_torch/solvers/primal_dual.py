@@ -28,11 +28,13 @@ from ..ops._batch import mv
 from ..ops.kkt import kkt_solve, sym_solve
 from ..problem.constraint_set import ConstraintSet, gtwg
 from ..problem.equality import EqualityConstraint
+from ..tree import exact_f32
 from .barrier import promote_points
 from .newton import ls_steps
 from .types import OptState, Solution, SolverParams
 
 
+@exact_f32
 def primal_dual_solve(obj, cnts: ConstraintSet, x0,
                       pars: SolverParams | None = None,
                       eqs: EqualityConstraint | None = None,

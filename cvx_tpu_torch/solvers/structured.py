@@ -25,6 +25,8 @@ import math
 import torch
 
 from ..ops.cholesky import _chol_nan, default_delta
+from ..tree import exact_f32
+from .barrier import initial_t
 from .types import Solution, SolverParams
 
 
@@ -58,15 +60,18 @@ def _woodbury_solver(h, U, w, delta):
     return solve_h
 
 
+@exact_f32
 def barrier_solve_structured(obj, U, ub, A, b, x0,
                              pars: SolverParams | None = None,
-                             t0: float = 1.0) -> Solution:
+                             t0: float | torch.Tensor = 1.0) -> Solution:
     """Barrier method for a batch of  min f(x)  s.t.  U x <= ub,  x > 0,
     A x = b.
 
     ``obj`` exposes value/grad and the DIAGONAL hess_diag of f at (B, n)
     points (values (B,)); the inequality rows U (k, n) are few and shared;
     positivity of x is built in.  x0 (B, n) must be strictly feasible.
+    ``t0``, the first barrier parameter, is a number or one per instance
+    (B,).
     Returns a batched Solution (one entry per instance in every leaf).
     """
     pars = pars or SolverParams()
@@ -141,7 +146,7 @@ def barrier_solve_structured(obj, U, ub, A, b, x0,
         return x_new, dec, (dec > tol) & ~take
 
     x = x0.clone()
-    t = torch.full((Bt,), t0, dtype=dtype, device=dev)
+    t = initial_t(t0, Bt, dtype, dev)
     outer_it = torch.zeros(Bt, dtype=torch.long, device=dev)
     n_newton = torch.zeros(Bt, dtype=torch.long, device=dev)
     hard = torch.zeros(Bt, dtype=torch.bool, device=dev)

@@ -19,6 +19,10 @@ resolution), 1e-11 in f64, and 0 on bench.py's family at 1000 x n = 100
 with the default line search.  K4: max |dL| <= 1e-4 relative to max |L|
 in f32 and 1e-10 in f64, NaN where the plain version has NaN (the lower
 triangle from the failed pivot's column on).
+
+The generic core, the fleet screen, the QP family, ``minimize`` and
+resume run on the card against the same calls on the CPU (tolerances at
+each test), and the entry points default to the card.
 """
 
 import numpy as np
@@ -346,3 +350,132 @@ def test_feasibility_batch_on_the_card_matches_the_cpu(dev):
     assert torch.equal(f_g, f_c) and np.array_equal(f_g.numpy(), ~bad)
     ds = float((s_g - s_c).abs().max())
     assert ds <= 1e-8, ds
+
+
+# ---------------------------------------------------------------------------
+# the fleet screen, the QP family, minimize and resume on the card,
+# each against the same call on the CPU.  Tolerances: the flags exactly; the
+# screen's bounds to 1e-10 (f64) / 1e-5 (f32) on the anti-parallel family;
+# f64 x to 1e-8 and the certified gap within the contract on both
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_screen_on_the_card_matches_the_cpu(dev, dtype):
+    from cvx_tpu_torch import DistKL
+
+    n, B = 100, 200
+    H, U, bad = _mixed_batch(n, B)
+    out = {}
+    for d in ("cpu", dev):
+        prob = DistKL.create(n, H=torch.tensor(H, dtype=dtype),
+                             u=torch.zeros(2, dtype=dtype), device=d)
+        out[str(d)] = prob.feasibility_screen_batch(
+            torch.tensor(U, dtype=dtype))
+    cpu, gpu = out["cpu"], out[str(dev)]
+    assert gpu.x.device.type == "cuda"
+    assert np.array_equal(gpu.infeasible.cpu().numpy(), bad)
+    for f in ("strictly_feasible", "infeasible", "undecided"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    for f in ("s_lower", "s_upper", "x", "w"):
+        d = float((getattr(gpu, f).cpu() - getattr(cpu, f)).abs().max())
+        assert d <= tol, (f, d)
+
+
+def _qp_fleet(n, m, p, B, seed=0):
+    """bench_scaling.qp_fleet's recipe in numpy: shared P, G, A; per
+    instance a, ub."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n)) / np.sqrt(n)
+    return dict(P=M @ M.T + np.eye(n),
+                a=rng.standard_normal((B, n)),
+                G=rng.standard_normal((m, n)) / np.sqrt(n),
+                h=rng.uniform(0.5, 1.5, (B, m)),
+                A=rng.standard_normal((p, n)) / np.sqrt(n),
+                b=np.zeros(p))
+
+
+@pytest.mark.timeout(600)
+def test_qp_certified_on_the_card_matches_the_cpu(dev):
+    from cvx_tpu_torch import QP, SolverParams
+
+    data = _qp_fleet(24, 12, 2, 8)
+    pars = SolverParams(tol=1e-7, mu=20.0, kkt_method="chol", kkt_refine=1,
+                        max_iter=40)
+    out = {}
+    for d in ("cpu", dev):
+        qp = QP.create(**data, dtype=torch.float32, device=d)
+        out[str(d)] = qp.solve_certified(
+            torch.zeros(24, dtype=torch.float32), pars, method="BR")
+    cpu, gpu = out["cpu"], out[str(dev)]
+    assert gpu.x.device.type == "cuda" and gpu.x.dtype == torch.float64
+    for s in (cpu, gpu):
+        assert float(s.duality_gap.abs().max()) <= 1e-8
+        assert float(s.ineq_res.max()) <= 1e-7
+        assert not bool(s.stalled.any())
+    dx = float((gpu.x.cpu() - cpu.x).abs().max())
+    assert dx <= 1e-5, dx
+
+
+def test_minimize_on_the_card_matches_the_cpu(dev):
+    from cvx_tpu_torch import minimize
+    from cvx_tpu_torch import problem as pb
+
+    n = 8
+    outs = {}
+    for d in ("cpu", dev):
+        outs[str(d)] = minimize(pb.p_norm_p(n, 2.2),
+                                pb.ConstraintSet(blocks=(pb.positivity(n),)),
+                                pb.sum_to_one(n),
+                                x0=torch.zeros(n, dtype=torch.float64),
+                                method="BR", device=d)
+    cpu, gpu = outs["cpu"], outs[str(dev)]
+    assert gpu.x.device.type == "cuda"
+    assert float((gpu.x.cpu() - cpu.x).abs().max()) <= 1e-8
+    assert bool(gpu.stalled) == bool(cpu.stalled)
+
+
+def test_resume_on_the_card_matches_the_cpu(dev, tmp_path):
+    from cvx_tpu_torch import DistKL, SolverParams
+    from cvx_tpu_torch.checkpoint import (load_pytree, resume_barrier,
+                                          save_pytree)
+    from cvx_tpu_torch.solvers import barrier_solve
+
+    n = 10
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    ws = np.array([0.45, 0.55, 0.7])
+    x0s = ws[:, None] * I_A / 3 + (1 - ws)[:, None] * (1 - I_A) / (n - 3)
+    out = {}
+    for d in ("cpu", dev):
+        prob = DistKL.create(n, H=-I_A[None], u=np.array([-0.4]), device=d)
+        X0 = torch.tensor(x0s, device=d)
+        mid = barrier_solve(prob.objective, prob.inequalities, X0,
+                            SolverParams(outer_max_iter=3, mu=10.0, tol=1e-9),
+                            eqs=prob.equalities)
+        path = str(tmp_path / f"{torch.device(d).type}.npz")
+        save_pytree(path, mid)
+        out[str(d)] = resume_barrier(
+            prob.objective, prob.inequalities, load_pytree(path, mid),
+            SolverParams(mu=10.0, tol=1e-9), eqs=prob.equalities)
+    cpu, gpu = out["cpu"], out[str(dev)]
+    assert gpu.x.device.type == "cuda"
+    assert float((gpu.x.cpu() - cpu.x).abs().max()) <= 1e-8
+    assert torch.equal(gpu.stalled.cpu(), cpu.stalled)
+    assert float(gpu.duality_gap.max()) < 1e-8
+
+
+def test_new_entry_points_default_to_the_card(dev):
+    from cvx_tpu_torch import LP, QP, DiagQP, minimize
+    from cvx_tpu_torch import problem as pb
+
+    n = 4
+    qp = QP.create(np.eye(n), np.ones(n), np.eye(n), np.ones(n))
+    dq = DiagQP.create(np.ones(n), np.ones(n))
+    lp = LP(np.ones(n), A=np.ones((1, n)), b=np.ones(1))
+    for leaf in (qp.P, qp.h, dq.c, dq.U, lp.a, lp.c, lp.A):
+        assert leaf.device.type == "cuda"
+    sol = minimize(pb.norm_squared(n), pb.ConstraintSet(
+        blocks=(pb.positivity(n),)), pb.sum_to_one(n),
+        feasible_point=torch.full((n,), 0.25, dtype=torch.float64))
+    assert sol.x.device.type == "cuda"

@@ -185,9 +185,19 @@ class TestBlocks:
         _close(blk.lift_soi(2, 1).value(_t(xs)),
                jax.vmap(ref.lift_soi(2, 1).value)(jnp.asarray(xs)))
 
-    def test_abs_sum_bounded_waits_for_testmat(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP M7d"):
-            pb.abs_sum_bounded(4, 0, 2, 1.0)
+    def test_abs_sum_bounded_matches_reference(self):
+        """tests/test_qp_model.py::TestAbsSum: the 2^(q-p) sign rows on
+        coordinates [p, q), against the reference's block."""
+        blk, ref = pb.abs_sum_bounded(4, 1, 3, 2.0), rpb.abs_sum_bounded(
+            4, 1, 3, 2.0)
+        assert blk.m == ref.m == 4
+        _close(blk.G, ref.G, 0.0)
+        _close(blk.ub, ref.ub, 0.0)
+        xs = np.array([[5.0, 1.0, -0.5, 7.0], [0.0, 1.5, -1.0, 0.0]])
+        _close(blk.value(_t(xs)), jax.vmap(ref.value)(jnp.asarray(xs)), 0.0)
+        # |x_1| + |x_2| = 1.5 <= 2 whatever the other coordinates; 2.5 > 2
+        assert torch.all(blk.value(_t(xs)) <= blk.ub, dim=-1).tolist() == \
+            [True, False]
 
 
 class TestConstraintSet:
