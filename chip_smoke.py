@@ -22,6 +22,13 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
   500, 10, 100)), a resume of the first from a checkpoint on disk,
   ``minimize`` with "BR", "PD" and "BR_fast", a DiagQP and an LP batch,
   and the exact-f32 guard of the solvers, none of which launches K1-K4;
+* phase 4d: the parallel layer (``cvx_tpu_torch.parallel``) on a
+  one-rank NCCL group: ``shard_solve`` of ``solve_certified_batch`` at
+  10,000 x n = 100 (K2 once, the same bits as the local call), north-star
+  config 5 (64 blocks of 156, the Schur consensus and its certificate),
+  the m-sharded barrier and primal-dual at m = 4096, n = 128, and
+  ``tp_chol`` at n = 4096 and 8192 against ``torch.linalg.cholesky``;
+  then four gloo ranks on the one card hold (a) and config 5 sharded;
 
 times the kernels with CUDA events beside their plain versions, a library
 call where one computes the same function, and the least time the card
@@ -85,6 +92,12 @@ GEN_DX, GEN_CERT = 1e-5, 1e-6
 # (tol_feas); a resumed and certified QP fleet against straight through
 SCREEN_F32, SCREEN_F64 = 1e-5, 1e-12
 TOL_FEAS = 1e-7
+# phase 4d (the parallel layer): config 5's sharded run against its local
+# run, the m-sharded solvers against the port's local solvers (max |dx|),
+# tp_chol against torch.linalg.cholesky (max |dL| / max |L|, f64)
+SCHUR_DX = 1e-10
+MSHARD_DX = 1e-6
+TP_CHOL_REL = 1e-12
 RESUME_DX = 1e-6
 
 # the card's peak rates (NVIDIA's H100 SXM data sheet; f64 outside the
@@ -482,31 +495,36 @@ def zero_counts(*kernels):
         k.launches = 0
 
 
-def device_busy(fn, reps, warm=True, raw=False):
+def device_busy(fn, reps, warm=True, raw=False, timed=True):
     """(host wall ms median of ``reps`` calls ending in synchronize(),
     device busy ms per call and device ops per call from a torch.profiler
     trace of ``reps`` calls); the profiler figures are None where the
     trace holds no device time.  ``warm=False`` skips the warm-up call
     (the caller has made one).  ``raw=True`` traces the device activity
     alone and sums its raw events: for calls of a million launches, where
-    tracing the host ops and ``key_averages`` take many minutes."""
+    tracing the host ops and ``key_averages`` take many minutes.
+    ``timed=False`` skips the separate timed calls (a route of tens of
+    seconds): the host wall is then that of the traced calls themselves,
+    the tracing's cost included."""
     if warm:
         fn()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(reps):
+    for _ in range(reps if timed else 0):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls)
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA] if raw else
                  [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) * 1e3 / reps
+    wall = statistics.median(walls) if timed else traced
     busy_us, ops = 0.0, 0
     if raw:
         for evt in prof.profiler.kineto_results.events():
@@ -575,7 +593,7 @@ def generic_core(dev, kernels, H, U, x_cert):
     t0 = time.perf_counter()
     sol = prob.solve_jittable_batch(Ut, X0, method="BR")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = wall_br = time.perf_counter() - t0
     launches = kernel_counts(*kernels)
     certs = kl_gap_certificate_np(sol.x.cpu().numpy(), H, U)
     dx = float((sol.x - x_cert.to(sol.x.dtype)).abs().max())
@@ -595,6 +613,15 @@ def generic_core(dev, kernels, H, U, x_cert):
     screen = DistKL.create(100, H=torch.tensor(Hm, **f64),
                            u=torch.zeros(2, **f64))
     Umt = torch.tensor(Um, **f64)
+    # feasibility_batch is _screen's report cut to two leaves: keep the
+    # report of each call, for phase 6's step counts
+    report, screen_report = {}, screen._screen
+
+    def keep_report(u, pars):
+        report["rep"] = screen_report(u, pars)
+        return report["rep"]
+
+    screen._screen = keep_report
     torch.cuda.synchronize()
     zero_counts(*kernels)
     t0 = time.perf_counter()
@@ -602,11 +629,9 @@ def generic_core(dev, kernels, H, U, x_cert):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_counts(*kernels)
-    steps = screen._screen(Umt, SolverParams()).iters
     flagged = (s_max > 0).cpu().numpy()
     print(f"  feasibility_batch {B} x n=100 ({int(bad.sum())} infeasible): "
-          f"{wall:.3f} s; Newton steps, the batch's longest "
-          f"{int(steps.max())}; flagged {int(flagged.sum())}; launches "
+          f"{wall:.3f} s; flagged {int(flagged.sum())}; launches "
           f"{launches}")
     check(launches == none, "feasibility_batch launched none of K1-K4")
     check(np.array_equal(flagged, bad)
@@ -632,12 +657,14 @@ def generic_core(dev, kernels, H, U, x_cert):
     check(raised, "infeasible problem: solve('BR') raised "
           "InfeasibleProblemError")
     # phase 6's rows: (label, call, Newton steps of the batch's longest
-    # instance); the calls above were their warm-up
+    # instance, or a function that reads them after the call, the host
+    # wall ms of the untraced call above: the same route, tens of seconds)
     return (("generic BR, solve_jittable_batch(method='BR')",
              lambda: prob.solve_jittable_batch(Ut, X0, method="BR"),
-             int(sol.iters.max())),
+             int(sol.iters.max()), wall_br * 1e3),
             ("generic phase-I, feasibility_batch",
-             lambda: screen.feasibility_batch(Umt), int(steps.max())))
+             lambda: screen.feasibility_batch(Umt),
+             lambda: int(report["rep"].iters.max()), wall * 1e3))
 
 
 def screen_family(B, n, seed=7):
@@ -973,6 +1000,279 @@ def fleet_routes(dev, kernels, B_screen=10000, qp_shapes=((128, 64, 4, 512),
     return rows
 
 
+def separable_data(K=64, nb=156, mb=32, p=8, seed=5):
+    """North-star config 5 (``bench_scaling.py:427-443``) from a numpy
+    seed, in the recipe's distributions: P = M M' + I, a and C normal, G
+    the first mb rows of [I; -I], u = 10, c = 0.1 normal."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(nb)
+    M = rng.standard_normal((K, nb, nb)) / np.sqrt(nb)
+    P = np.einsum("kij,klj->kil", M, M) + eye[None]
+    a = rng.standard_normal((K, nb))
+    G = np.tile(np.concatenate([eye, -eye])[None], (K, 1, 1))[:, :mb]
+    u = np.full((K, mb), 10.0)
+    C = rng.standard_normal((K, p, nb)) / np.sqrt(nb)
+    c = 0.1 * rng.standard_normal(p)
+    return P, a, G, u, C, c
+
+
+def msharded_data(m, n, seed=0):
+    """``tests/test_constraint_shard.py:23-33``'s problem from a numpy
+    seed: min 0.5 ||x - z||^2 s.t. G x <= ub, x0 = 0 strictly feasible, z
+    pulled outside so a handful of rows are active at the optimum."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((m, n)) / np.sqrt(n)
+    ub = rng.uniform(0.5, 1.5, m)
+    z = 2.0 * rng.standard_normal(n) / np.sqrt(n) + 0.4
+    return G, ub, z
+
+
+def spd_f64(n, seed, dev):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    M = torch.randn(n, n, generator=g, dtype=torch.float64) / math.sqrt(n)
+    return (M @ M.T + 2.0 * torch.eye(n, dtype=torch.float64)).to(dev)
+
+
+def _sep_problem(dev, dtype=torch.float32):
+    from cvx_tpu_torch.parallel import SeparableProblem
+
+    return SeparableProblem(*(torch.tensor(v, dtype=dtype, device=dev)
+                              for v in separable_data()))
+
+
+def gloo_rank(rank, size, H, U, device):
+    """Phase 4d (e): one of ``size`` gloo ranks on cuda:0 runs (a) and (b)
+    sharded over the ranks; rank 0 returns the whole results."""
+    from cvx_tpu_torch import DistKL
+    from cvx_tpu_torch.parallel import (block_mesh, instance_mesh,
+                                        separable_barrier_solve,
+                                        make_sharded_schur_solver,
+                                        shard_solve)
+    from cvx_tpu_torch.parallel.schur import make_sharded_separable_certify
+    from cvx_tpu_torch.solvers import SolverParams
+
+    dev = torch.device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    prob = DistKL.create(H.shape[1], H=torch.tensor(H, **f32),
+                         u=torch.zeros(2, **f32), device=dev)
+    sol = shard_solve(prob.solve_certified_batch, instance_mesh(device=dev))(
+        torch.tensor(U, **f32))
+    sp = _sep_problem(dev)
+    mesh = block_mesh(device=dev)
+    pars = SolverParams(tol=1e-7, mu=20.0, max_iter=12)
+    s = separable_barrier_solve(sp, torch.zeros(sp.K, sp.nb, **f32), pars,
+                                kkt_solver=make_sharded_schur_solver(mesh))
+    cert = make_sharded_separable_certify(mesh)(sp, s.x, s.lam, s.nu)
+    out = {k: v.cpu().numpy() for k, v in (("x", sol.x), ("lam", sol.lam),
+                                   ("nu", sol.nu), ("gap", sol.duality_gap),
+                                   ("ineq", sol.ineq_res),
+                                   ("eq", sol.eq_gap), ("sep_x", cert.x),
+                                   ("sep_gap", cert.gap))}
+    return out if rank == 0 else None
+
+
+def parallel_routes(dev, kernels, smi, H, U, n_gloo=4, m_shape=(4096, 128),
+                    tp_sizes=(4096, 8192), sync=torch.cuda.synchronize):
+    """Phase 4d: the parallel layer on a one-rank NCCL group at full width,
+    each route with the launch counters set to 0 just before it and read
+    just after, then ``n_gloo`` gloo ranks on cuda:0.  Returns phase 6's
+    records of the sharded dp route and config 5, measured while the group
+    is up."""
+    import torch.distributed as dist
+
+    from cvx_tpu_torch import DistKL, SolverParams
+    from cvx_tpu_torch.parallel import (barrier_solve_msharded, block_mesh,
+                                        init_distributed, instance_mesh,
+                                        make_sharded_cholesky,
+                                        make_sharded_schur_solver,
+                                        primal_dual_solve_msharded,
+                                        separable_barrier_solve,
+                                        shard_solve)
+    from cvx_tpu_torch.parallel.mesh import free_port, spawn_ranks
+    from cvx_tpu_torch.parallel.schur import (make_sharded_separable_certify,
+                                              separable_certify)
+    from cvx_tpu_torch.problem.constraint_set import ConstraintSet
+    from cvx_tpu_torch.problem.constraints import LinearBlock
+    from cvx_tpu_torch.problem.objective import QuadraticObjective
+    from cvx_tpu_torch.solvers import barrier_solve, primal_dual_solve
+
+    print("phase 4d: the parallel layer (a one-rank NCCL group, then "
+          f"{n_gloo} gloo ranks on cuda:0)")
+    init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    check(dist.get_backend() == "nccl", "phase 4d's group is NCCL")
+    rows = []
+
+    def wall(fn, reps=3):
+        fn()
+        sync()
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls), out
+
+    def busy(rows, label, fn, reps, steps):
+        # phase 6's measure, taken here while the group is up
+        w, b, ops = device_busy(fn, reps, warm=steps is None,
+                                raw=steps is not None)
+        rows.append({"path": label, "host_wall_ms": w,
+                     "host_wall_of": "separate timed calls",
+                     "device_busy_ms": b,
+                     "device_ops": ops, "calls": reps,
+                     "newton_steps_longest": steps, "card": smi})
+
+    def record(label, ms, **extra):
+        print(json.dumps({"path": label, "host_wall_ms": ms, **extra,
+                          "card": smi}))
+
+    # (a) dp, the flagship route: K2 on each rank's shard
+    f32 = dict(dtype=torch.float32, device=dev)
+    prob = DistKL.create(H.shape[1], H=torch.tensor(H, **f32),
+                         u=torch.zeros(2, **f32), device=dev)
+    Ut = torch.tensor(U, **f32)
+    mesh = instance_mesh(device=dev)
+    dp = shard_solve(prob.solve_certified_batch, mesh)
+    local = prob.solve_certified_batch(Ut)
+    sync()
+    zero_counts(*kernels)
+    sol = dp(Ut)
+    sync()
+    launches = kernel_counts(*kernels)
+    check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 1,
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 0},
+          f"(a) shard_solve(solve_certified_batch) launched K2 once, "
+          f"nothing else {launches}")
+    same = all(torch.equal(getattr(sol, k), getattr(local, k))
+               for k in ("x", "lam", "nu", "duality_gap", "ineq_res",
+                         "eq_gap", "stalled"))
+    gmax = float(sol.duality_gap.abs().max())
+    rmax = max(float(sol.ineq_res.max()), float(sol.eq_gap.max()))
+    check(same and gmax <= CERT_GAP and rmax <= TOL_FEAS
+          and not bool(sol.stalled.any()),
+          f"(a) dp K2 {tuple(Ut.shape)}: the same bits as the local call, "
+          f"max|gap| {gmax:.3e} <= {CERT_GAP:g}, residuals {rmax:.3e} <= "
+          "tol_feas")
+    ms, _ = wall(lambda: dp(Ut), reps=10)
+    ms_local, _ = wall(lambda: prob.solve_certified_batch(Ut), reps=10)
+    record("(a) dp shard_solve(solve_certified_batch), 1 NCCL rank", ms,
+           local_ms=ms_local)
+    busy(rows, "4d (a) dp K2, 1 NCCL rank", lambda: dp(Ut), 10, None)
+
+    # (b) config 5 through the Schur consensus and its certificate
+    sp = _sep_problem(dev)
+    x0 = torch.zeros(sp.K, sp.nb, **f32)
+    pars5 = SolverParams(tol=1e-7, mu=20.0, max_iter=12)
+    bmesh = block_mesh(device=dev)
+    solver = make_sharded_schur_solver(bmesh)
+    certify = make_sharded_separable_certify(bmesh)
+
+    def config5_local():
+        s = separable_barrier_solve(sp, x0, pars5)
+        return s, separable_certify(sp, s.x, s.lam, s.nu)
+
+    def config5_sharded():
+        s = separable_barrier_solve(sp, x0, pars5, kkt_solver=solver)
+        return s, certify(sp, s.x, s.lam, s.nu)
+
+    zero_counts(*kernels)
+    ms_l, (s_l, c_l) = wall(config5_local, reps=1)
+    ms_s, (s_s, c_s) = wall(config5_sharded, reps=1)
+    check_none(kernels, "(b) config 5", sync)
+    for label, s, c in (("local", s_l, c_l), ("sharded", s_s, c_s)):
+        print(f"  (b) config 5 {label}: {int(s.iters)} Newton steps, "
+              f"gap {float(c.gap):.3e}, ineq_res {float(c.ineq_res):.3e}, "
+              f"coupling {float(c.eq_res):.3e}")
+        check(abs(float(c.gap)) <= CERT_GAP
+              and float(c.ineq_res) <= TOL_FEAS
+              and float(c.eq_res) <= TOL_FEAS,
+              f"(b) config 5 {label}: measured |gap| <= {CERT_GAP:g}, "
+              "ineq_res and coupling error <= tol_feas")
+    dxs = float((c_s.x - c_l.x).abs().max())
+    dgap = abs(float(c_s.gap) - float(c_l.gap))
+    check(dxs <= SCHUR_DX and dgap <= SCHUR_DX,
+          f"(b) config 5 sharded within {SCHUR_DX:g} of local: max|dx| "
+          f"{dxs:.3e}, |dgap| {dgap:.3e}")
+    record("(b) config 5 separable_barrier_solve + certify, local", ms_l,
+           newton_steps=int(s_l.iters))
+    record("(b) config 5 sharded Schur + certify, 1 NCCL rank", ms_s,
+           newton_steps=int(s_s.iters))
+    busy(rows, "4d (b) config 5 sharded + certify, 1 NCCL rank",
+         config5_sharded, 1, int(s_s.iters))
+
+    # (c) the m-sharded barrier and primal-dual, m = 4096, n = 128, f64
+    m, n = m_shape
+    G, ub, z = msharded_data(m, n)
+    f64 = dict(dtype=torch.float64, device=dev)
+    Gt, ubt, zt = (torch.tensor(v, **f64) for v in (G, ub, z))
+    obj = QuadraticObjective(P=torch.eye(n, **f64), a=-zt,
+                             r=0.5 * (zt @ zt))
+    c0, x0m = torch.zeros(m, **f64), torch.zeros(n, **f64)
+    cnts = ConstraintSet(blocks=(LinearBlock(G=Gt, c=c0, ub=ubt),))
+    mmesh = instance_mesh(axis="m", device=dev)
+    for label, sharded, plain in (
+            ("barrier", lambda: barrier_solve_msharded(
+                obj, Gt, c0, ubt, x0m, SolverParams(tol=1e-9, mu=20.0),
+                mesh=mmesh),
+             lambda: barrier_solve(obj, cnts, x0m[None],
+                                   SolverParams(tol=1e-9, mu=20.0))),
+            ("primal-dual", lambda: primal_dual_solve_msharded(
+                obj, cnts, x0m, SolverParams(tol=1e-8), mesh=mmesh),
+             lambda: primal_dual_solve(obj, cnts, x0m[None],
+                                       SolverParams(tol=1e-8)))):
+        zero_counts(*kernels)
+        ms_s, sol_s = wall(sharded, reps=1)
+        ms_l, sol_l = wall(plain, reps=1)
+        check_none(kernels, f"(c) m-sharded {label}", sync)
+        dx = float((sol_s.x - sol_l.x[0]).abs().max())
+        check(dx < MSHARD_DX and not bool(sol_s.stalled),
+              f"(c) m-sharded {label} m={m} n={n}: max|dx| {dx:.3e} < "
+              f"{MSHARD_DX:g} against the local solver, not stalled")
+        record(f"(c) m-sharded {label}, 1 NCCL rank", ms_s, local_ms=ms_l,
+               newton_steps=int(sol_s.iters),
+               local_newton_steps=int(sol_l.iters.max()))
+
+    # (d) tp_chol: the row-sharded Cholesky on one rank
+    for n_tp in tp_sizes:
+        Hs = spd_f64(n_tp, n_tp, dev)
+        chol = make_sharded_cholesky(instance_mesh(axis="tp", device=dev),
+                                     n_tp, block=128)
+        zero_counts(*kernels)
+        ms_tp, L = wall(lambda: chol(Hs), reps=3)
+        ms_lib, Lref = wall(lambda: torch.linalg.cholesky(Hs), reps=3)
+        check_none(kernels, f"(d) tp_chol n={n_tp}", sync)
+        rel = float((L - Lref).abs().max() / Lref.abs().max())
+        check(rel <= TP_CHOL_REL,
+              f"(d) tp_chol n={n_tp} block 128 f64: max|dL|/max|L| "
+              f"{rel:.3e} <= {TP_CHOL_REL:g}")
+        record(f"(d) tp_chol n={n_tp} block 128 f64, 1 NCCL rank", ms_tp,
+               torch_linalg_cholesky_ms=ms_lib, overhead=ms_tp / ms_lib)
+        del Hs, L, Lref
+    dist.destroy_process_group()
+
+    # (e) n_gloo gloo ranks on the one card, against (a) and (b)
+    t0 = time.perf_counter()
+    got = spawn_ranks(gloo_rank, n_gloo, H, U, str(dev),
+                      init_method=f"tcp://localhost:{free_port()}",
+                      backend="gloo", device=dev, timeout=300)[0]
+    same = all(np.array_equal(got[k], getattr(local, f).cpu().numpy())
+               for k, f in (("x", "x"), ("lam", "lam"), ("nu", "nu"),
+                            ("gap", "duality_gap"), ("ineq", "ineq_res"),
+                            ("eq", "eq_gap")))
+    check(same, f"(e) {n_gloo} gloo ranks on cuda:0, "
+          f"{U.shape[0] // n_gloo} instances a rank: the same bits as (a)")
+    dxs = float(np.abs(got["sep_x"] - c_l.x.cpu().numpy()).max())
+    dgap = abs(float(got["sep_gap"]) - float(c_l.gap))
+    check(dxs <= SCHUR_DX and dgap <= SCHUR_DX,
+          f"(e) config 5 on {n_gloo} gloo ranks, {sp.K // n_gloo} blocks a "
+          f"rank: within {SCHUR_DX:g} of (b): max|dx| {dxs:.3e}, |dgap| "
+          f"{dgap:.3e}")
+    record(f"(e) {n_gloo} gloo ranks on cuda:0, (a) and (b), spawn "
+           "included", (time.perf_counter() - t0) * 1e3)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1219,6 +1519,11 @@ def main() -> int:
     fleet_rows = fleet_routes(dev, kernels)
     print(f"  phase 4c wall {time.perf_counter() - t0:.1f} s")
 
+    # 4d. the parallel layer: a one-rank NCCL group, then gloo ranks
+    t0 = time.perf_counter()
+    parallel_rows = parallel_routes(dev, kernels, smi, H, U)
+    print(f"  phase 4d wall {time.perf_counter() - t0:.1f} s")
+
     # 5. times (CUDA events, in turns), with each kernel's bound
     print("phase 5: times (CUDA events)")
     record = {}
@@ -1310,31 +1615,42 @@ def main() -> int:
 
     # 6. where the time goes: host wall and device busy share of each path
     print("phase 6: host wall and device busy share per call")
-    # the generic core's routes take seconds a call: one timed call and one
-    # traced, phase 4b's call their warm-up
-    for label, fn, reps, steps in (
+    # the fleet routes take seconds a call: one timed call and one traced,
+    # phase 4c's call their warm-up; the generic core's take tens of
+    # seconds: one traced call, its host wall phase 4b's untraced call of
+    # the same route (tracing a million launches slows the host)
+    for label, fn, reps, steps, wall_4b in (
             ("primal fused (K3 + kl_dual_gap)",
              lambda: prob_p.solve_jittable_batch(Ut, X0t, method="fused",
-                                                 pars=pars), 10, None),
+                                                 pars=pars), 10, None, None),
             ("dual auto (K2)", lambda: prob_d.solve_certified_batch(Ut), 10,
-             None),
+             None, None),
             ("dual fused_cert=False (K1 + f64 finish)",
              lambda: prob_d.solve_certified_batch(Ut, fused_cert=False), 10,
-             None),
+             None, None),
             ("cholesky_batched cuda 4096 x 100",
-             lambda: cholesky_batched(Xc, method="cuda"), 10, None),
-            *((g[0], g[1], 1, g[2]) for g in generic_routes),
-            *((g[0], g[1], 1, g[2]) for g in fleet_rows)):
+             lambda: cholesky_batched(Xc, method="cuda"), 10, None, None),
+            *((g[0], g[1], 1, g[2], g[3]) for g in generic_routes),
+            *((g[0], g[1], 1, g[2], None) for g in fleet_rows)):
         wall, busy, ops = device_busy(fn, reps, warm=steps is None,
-                                      raw=steps is not None)
+                                      raw=steps is not None,
+                                      timed=wall_4b is None)
+        extra = {"host_wall_of": "separate timed calls"}
+        if wall_4b is not None:
+            extra = {"host_wall_of": "phase 4b's untraced call",
+                     "traced_wall_ms": wall}
+            wall = wall_4b
+        steps = steps() if callable(steps) else steps
         share = "not measured" if busy is None else f"{busy / wall:.3f}"
         busy_s = "not measured" if busy is None else f"{busy:.4f}"
-        print(json.dumps({"path": label, "host_wall_ms": wall,
+        print(json.dumps({"path": label, "host_wall_ms": wall, **extra,
                           "device_busy_ms": busy, "device_ops": ops,
                           "calls": reps, "newton_steps_longest": steps,
                           "card": smi}))
         print(f"  {label}: host wall {wall:.4f} ms, device busy {busy_s} "
               f"ms, busy share {share}")
+    for rec in parallel_rows:       # measured in phase 4d, the group up
+        print(json.dumps(rec))
 
     srcs = {"kl_dual_fused": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_dual_fused_cert": "cvx_tpu_torch/ops/csrc/kl_dual.cu",

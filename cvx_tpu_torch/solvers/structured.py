@@ -116,6 +116,16 @@ def barrier_solve_structured(obj, U, ub, A, b, x0,
         zr = -(rhs_eq + Hig @ A.T)
         wv = torch.cholesky_solve(zr[:, :, None], Ls)
         dx = -(Hig + (HiAt @ wv)[:, :, 0])
+        # the reference relies on this solve keeping A dx = rhs_eq exactly;
+        # in floating point dx cancels two terms of size |H^-1 g| ~ t, so
+        # A dx misses rhs_eq by ~eps t (6e-5 at t = 5e11 on the n = 12 LP).
+        # One correction on the p equality rows, with the same factor,
+        # restores A dx = rhs_eq to rounding.  The reference takes no such
+        # step, so the two trajectories part at rounding level (the LP's
+        # exit then holds sum(x) = 1 to 2e-16 where the reference's drifts
+        # to 1e-7); it costs one (p, p) solve a step
+        r_eq = rhs_eq - dx @ A.T
+        dx = dx + (HiAt @ torch.cholesky_solve(r_eq[:, :, None], Ls))[:, :, 0]
 
         q = (dx * g).sum(dim=1)
         dec = -q / 2.0

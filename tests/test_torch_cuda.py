@@ -22,7 +22,9 @@ triangle from the failed pivot's column on).
 
 The generic core, the fleet screen, the QP family, ``minimize`` and
 resume run on the card against the same calls on the CPU (tolerances at
-each test), and the entry points default to the card.
+each test), and the entry points default to the card.  The parallel
+layer runs on a one-rank NCCL group: the dp certified route through K2
+equal in bits to the local call, and ``tp_chol`` at n = 1024.
 """
 
 import numpy as np
@@ -479,3 +481,61 @@ def test_new_entry_points_default_to_the_card(dev):
         blocks=(pb.positivity(n),)), pb.sum_to_one(n),
         feasible_point=torch.full((n,), 0.25, dtype=torch.float64))
     assert sol.x.device.type == "cuda"
+
+
+@pytest.fixture
+def nccl_one_rank(dev):
+    """A one-rank NCCL group on the card for the parallel layer."""
+    import torch.distributed as dist
+
+    from cvx_tpu_torch.parallel import init_distributed, instance_mesh
+    from cvx_tpu_torch.parallel.mesh import free_port
+
+    init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        yield instance_mesh(device=dev)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_parallel_dp_k2_one_nccl_rank(dev, nccl_one_rank):
+    """``shard_solve`` of the certified route through K2 on a one-rank
+    NCCL group, 4,096 instances: the same bits as the local call, K2
+    launched once."""
+    from cvx_tpu_torch import DistKL
+    from cvx_tpu_torch.parallel import shard_solve
+
+    H, U, _, _ = _family(2, 0, 100, 4096)
+    f32 = dict(dtype=torch.float32, device=dev)
+    prob = DistKL.create(100, H=torch.tensor(H, **f32),
+                         u=torch.zeros(2, **f32))
+    Ut = torch.tensor(U, **f32)
+    local = prob.solve_certified_batch(Ut)
+    k2 = kl_dual_fused_cert.launches
+    sol = shard_solve(prob.solve_certified_batch, nccl_one_rank)(Ut)
+    torch.cuda.synchronize()
+    assert kl_dual_fused_cert.launches == k2 + 1
+    for name in ("x", "lam", "nu", "duality_gap", "ineq_res", "eq_gap",
+                 "stalled"):
+        assert torch.equal(getattr(sol, name), getattr(local, name)), name
+    assert float(sol.duality_gap.abs().max()) <= 1e-8
+
+
+def test_tp_chol_one_nccl_rank(dev, nccl_one_rank):
+    """``tp_chol`` on one rank at n = 1024 (block 128, f64) against
+    ``torch.linalg.cholesky`` (the reference's tests/test_tp_chol.py
+    bound, 1e-9), and its solve against ``torch.linalg.solve``."""
+    from cvx_tpu_torch.parallel import (instance_mesh,
+                                        make_sharded_chol_solve,
+                                        make_sharded_cholesky)
+
+    n = 1024
+    g = torch.Generator().manual_seed(0)
+    M = torch.randn(n, n, generator=g, dtype=torch.float64) / n ** 0.5
+    H = (M @ M.T + 2.0 * torch.eye(n, dtype=torch.float64)).to(dev)
+    B = torch.randn(n, 3, generator=g, dtype=torch.float64).to(dev)
+    tp = instance_mesh(axis="tp", device=dev)
+    L = make_sharded_cholesky(tp, n, block=128)(H)
+    assert float((L - torch.linalg.cholesky(H)).abs().max()) < 1e-9
+    X = make_sharded_chol_solve(tp, n, block=128)(L, B)
+    assert float((X - torch.linalg.solve(H, B)).abs().max()) < 1e-8
