@@ -20,8 +20,9 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
   and f64, 10,000 x n = 100, and the eq-fold family), the QP fleet
   (``QP.solve_certified`` at (n, m, p, B) = (128, 64, 4, 512) and (1000,
   500, 10, 100)), a resume of the first from a checkpoint on disk,
-  ``minimize`` with "BR", "PD" and "BR_fast", a DiagQP and an LP batch,
-  and the exact-f32 guard of the solvers, none of which launches K1-K4;
+  ``minimize`` with "BR", "PD" and "BR_fast", a DiagQP batch (with its
+  masked loop's steps by outer stage) and an LP batch, and the exact-f32
+  guard of the solvers, none of which launches K1-K4;
 * phase 4d: the parallel layer (``cvx_tpu_torch.parallel``) on a
   one-rank NCCL group: ``shard_solve`` of ``solve_certified_batch`` at
   10,000 x n = 100 (K2 once, the same bits as the local call), north-star
@@ -29,6 +30,7 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
   the m-sharded barrier and primal-dual at m = 4096, n = 128, and
   ``tp_chol`` at n = 4096 and 8192 against ``torch.linalg.cholesky``;
   then four gloo ranks on the one card hold (a) and config 5 sharded;
+* phase 4e: ``ops.ruiz_equilibrate0`` on the card against the CPU;
 
 times the kernels with CUDA events beside their plain versions, a library
 call where one computes the same function, and the least time the card
@@ -55,43 +57,39 @@ import time
 import numpy as np
 import torch
 
-K1_TOL = 1e-5      # f32 solve: max |dx| and |gap| on converged lanes
-# the f32 gap is a difference of sums over n coordinates, and its rounding
-# floor grows with n: past n = 1,000 the kernel's own gap is held to
-# K1_TOL n / 1000 (2.7e-5 measured at n = 10,000)
-K1_GAP_N = 1000
-K1_F64_TOL = 1e-9  # the same solve in f64
-# K1's z on converged lanes, as max |dz| / (1 + |z|): f32, f64
-K1_DZ, K1_F64_DZ = 1e-4, 1e-8
-K2_DX, K2_DGAP = 1e-11, 1e-10   # f64 polish + certificate
-K2_DZ = 1e-9       # K2's polished z, as max |dz| / (1 + |z|)
-K2_DRES = 1e-12    # K2's ineq_res and eq_res, absolute
-CERT_GAP = 1e-8    # the reference's certified contract (tolSolver)
+# the data recipes, the kernels' tolerances against their plain versions
+# (K1, K2, K4), the bound helpers and the card's peak rates, shared with
+# bench_scaling_torch.py and probe_structured.py
+from cvx_tpu_torch._bench import (CERT_GAP, K1_DZ, K1_F64_DZ, K1_F64_TOL,
+                                  K1_TOL, K2_DGAP, K2_DRES, K2_DX, K2_DZ,
+                                  K4_F64_TOL, K4_TOL, PRIMAL_CERT,
+                                  PRODUCTION, TOL_FEAS, bench_family, bound,
+                                  bytes_in, bytes_out, diagqp_data,
+                                  feasible_points, k1_agreement,
+                                  k1_ops_per_coord, k2_agreement,
+                                  k2_ops64_per_coord, k3_ops, k4_bytes,
+                                  max_abs, primal_args, qp_fleet_data,
+                                  separable_data)
+
 # K3 against its plain version: late Armijo decisions at t ~ 1e10 sit at
 # the f32 resolution of the barrier value, so another summation order may
 # take another candidate (max |dx| ~ 1e-7 on the CPU against the
 # reference); f64 differs by summation order only.  The measured gaps of
 # the two x to 1e-5 (kl_dual_gap's f32 floor), the stall flags exactly.
 K3_TOL, K3_F64_TOL, K3_DGAP = 1e-5, 1e-11, 1e-5
-# K4 against its plain version, max |dL| relative to max |L|: the trailing
-# sums run in another order (f32 ~1e-6 at condition ~1e3), f64 rounding
-K4_TOL, K4_F64_TOL = 2e-5, 1e-12
 # K4's backward error ||L L^T - X|| / ||X|| may exceed
 # torch.linalg.cholesky's own by this factor (plus 10 eps)
 K4_RECON_FACTOR = 10.0
 PRIMAL_GAP = math.sqrt(torch.finfo(torch.float32).eps)   # the stall rule
-PRIMAL_CERT = 1e-4   # host f64 certificate of the primal slice's f32 x
 PRIMAL_DOBJ = 1e-4   # |f(x_primal) - f(x_certified)| per instance
-PRODUCTION = dict(max_iter=3, mu=55.0, tol=1e-8)   # bench.py's schedule
 # the generic core (phase 4b, f64): max |dx| against K2's certified x of the
 # same instance (the barrier's gap bound m/t is <= 1e-8), and the host f64
 # certificate |gap| of each x
 GEN_DX, GEN_CERT = 1e-5, 1e-6
 # phase 4c: the fleet screen's bounds recomputed on the host from its x and
-# w, and |sum x - 1| (f32, f64); the QP family's residual contract
-# (tol_feas); a resumed and certified QP fleet against straight through
+# w, and |sum x - 1| (f32, f64); (TOL_FEAS, the QP family's residual
+# contract); a resumed and certified QP fleet against straight through
 SCREEN_F32, SCREEN_F64 = 1e-5, 1e-12
-TOL_FEAS = 1e-7
 # phase 4d (the parallel layer): config 5's sharded run against its local
 # run, the m-sharded solvers against the port's local solvers (max |dx|),
 # tp_chol against torch.linalg.cholesky (max |dL| / max |L|, f64)
@@ -99,35 +97,15 @@ SCHUR_DX = 1e-10
 MSHARD_DX = 1e-6
 TP_CHOL_REL = 1e-12
 RESUME_DX = 1e-6
-
-# the card's peak rates (NVIDIA's H100 SXM data sheet; f64 outside the
-# tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
+# phase 4e: the Ruiz variant on the card against the CPU, relative to the
+# largest entry (f64; the row norms sum in another order)
+RUIZ_REL = 1e-12
 
 
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
     print(f"  ok: {msg}")
-
-
-def bench_family(B, n, seed):
-    """bench.py's family: P(A) >= pA (|A| = 3, active), P(B) <= pB."""
-    rng = np.random.default_rng(seed)
-    I_A = np.zeros(n); I_A[:3] = 1.0
-    I_B = np.zeros(n); I_B[n // 2:] = 1.0
-    H = np.stack([-I_A, I_B])
-    U = np.column_stack([-rng.uniform(0.2, 0.5, B), rng.uniform(0.55, 0.8, B)])
-    return H, U
-
-
-def feasible_points(U, n):
-    """bench.py:164-168: weight pA + 0.05 on A, the rest spread evenly."""
-    w = -U[:, 0] + 0.05
-    I_A = np.zeros(n); I_A[:3] = 1.0
-    return (w / 3)[:, None] * I_A + ((1 - w) / (n - 3))[:, None] * (1 - I_A)
 
 
 def random_family(k, m_eq, n, B, seed=0):
@@ -184,6 +162,11 @@ def dual_cases(dev):
         H, U = bench_family(B, n, seed=n)
         out.append((f"family of bench.py B={B} n={n}",
                     t(H)[None].expand(B, -1, -1), t(U), None, None))
+    # the scaling ladder's kl_batch at n = 10,000: with uncompensated lane
+    # sums, lane 20 stopped at gap 1.4e-3 (kl_dual.cu, LaneSum)
+    H, U = bench_family(100, 10000, seed=0)
+    out.append(("ladder kl_batch B=100 n=10000",
+                t(H)[None].expand(100, -1, -1), t(U), None, None))
     return out
 
 
@@ -197,19 +180,6 @@ def mixed_batch(n, B, frac_infeasible=0.25, seed=0):
     bad = np.zeros(B, bool); bad[:: int(1 / frac_infeasible)] = True
     qA[bad] = pA[bad] - rng.uniform(0.05, 0.1, bad.sum())
     return np.stack([-I_A, I_A]), np.stack([-pA, qA], axis=1), bad
-
-
-def primal_args(H, U, X0, dev, dtype=torch.float32):
-    """K3's (Hs, u, A, b, x0) on the card: the shared rows, the sum-to-one
-    row and its right-hand side as stride-0 expands."""
-    B, n = X0.shape
-
-    def t(a):
-        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
-
-    ones = torch.ones((1, 1, n), dtype=dtype, device=dev)
-    return (t(H)[None].expand(B, -1, -1), t(U), ones.expand(B, -1, -1),
-            ones[0, :, :1].expand(B, 1), t(X0))
 
 
 def primal_cases(dev):
@@ -283,49 +253,28 @@ def k4_cases(dev):
     return out
 
 
-def max_abs(d, lanes):
-    """max |d| over the selected lanes (rows of a 2-D d), 0 for none."""
-    return float(d[lanes].abs().max()) if lanes.any() else 0.0
-
-
 def compare_k1(name, got, ref, tol, ztol):
-    (xk, gk, zk), (xp, gp, zp) = got, ref
-    dead_k, dead_p = torch.isinf(gk) & (gk > 0), torch.isinf(gp) & (gp > 0)
-    check(torch.equal(dead_k, dead_p),
-          f"K1 {name}: identical dead lanes ({int(dead_p.sum())})")
-    conv = torch.isfinite(gp) & (gp.abs() <= tol)
-    dx = max_abs(xk - xp, conv)
-    dz = max_abs((zk - zp) / (1.0 + zp.abs()), conv)
-    gmax = max_abs(gk, conv)
-    dx_all = max_abs(xk - xp, ~dead_p)
-    print(f"  K1 {name}: {int(conv.sum())}/{len(gp)} lanes converged; "
-          f"max|dx| {dx:.3e} (all live lanes {dx_all:.3e}); max|dz|/(1+|z|)"
-          f" {dz:.3e}; max|gap| {gmax:.3e}")
-    gtol = tol * max(1.0, xk.shape[1] / K1_GAP_N)
-    check(dx <= tol and gmax <= gtol and dz <= ztol,
-          f"K1 {name}: max|dx| <= {tol:g}, |gap| <= {gtol:g}, z within "
+    a = k1_agreement(got, ref, tol, ztol)
+    check(a["dead_same"], f"K1 {name}: identical dead lanes ({a['dead']})")
+    print(f"  K1 {name}: {a['converged']}/{a['lanes']} lanes converged; "
+          f"max|dx| {a['dx']:.3e} (all live lanes {a['dx_all']:.3e}); "
+          f"max|dz|/(1+|z|) {a['dz']:.3e}; max|gap| {a['gap']:.3e}")
+    check(a["close"],
+          f"K1 {name}: max|dx| <= {tol:g}, |gap| <= {a['gtol']:g}, z within "
           f"{ztol:g} on converged lanes")
-    return dx
+    return a["dx"]
 
 
 def compare_k2(name, got, ref):
-    xk, zk, gk, ik, ek = got
-    xp, zp, gp, ip, ep = ref
-    check(torch.equal(torch.isinf(gk), torch.isinf(gp)),
-          f"K2 {name}: identical dead lanes")
-    cert = torch.isfinite(gp) & (gp.abs() <= CERT_GAP)
-    dx = max_abs(xk - xp, cert)
-    dg = max_abs(gk - gp, cert)
-    dz = max_abs((zk - zp) / (1.0 + zp.abs()), cert)
-    dres = max(max_abs(ik - ip, cert), max_abs(ek - ep, cert))
-    print(f"  K2 {name}: {int(cert.sum())}/{len(gp)} lanes certified; "
-          f"max|dx| {dx:.3e}; max|dgap| {dg:.3e}; max|dz|/(1+|z|) "
-          f"{dz:.3e}; max|d ineq_res|, |d eq_res| {dres:.3e}")
-    check(dx <= K2_DX and dg <= K2_DGAP and dz <= K2_DZ
-          and dres <= K2_DRES,
+    a = k2_agreement(got, ref)
+    check(a["dead_same"], f"K2 {name}: identical dead lanes")
+    print(f"  K2 {name}: {a['certified']}/{a['lanes']} lanes certified; "
+          f"max|dx| {a['dx']:.3e}; max|dgap| {a['dgap']:.3e}; max|dz|/(1+|z|)"
+          f" {a['dz']:.3e}; max|d ineq_res|, |d eq_res| {a['dres']:.3e}")
+    check(a["close"],
           f"K2 {name}: max|dx| <= {K2_DX:g}, |dgap| <= {K2_DGAP:g}, z "
           f"within {K2_DZ:g}, residuals within {K2_DRES:g}")
-    return dx
+    return a["dx"]
 
 
 def compare_k3(name, dtype, args, ls, kern, plain, prob=None, pars=None):
@@ -421,69 +370,6 @@ def in_turns(fns, reps, order):
     for name in order:
         runs[name].append(time_ms(fns[name], reps[name]))
     return {name: min(v) for name, v in runs.items()}, runs
-
-
-def bound(nbytes, ops32=0.0, ops64=0.0):
-    """(least ms, what sets it): the bytes moved at the HBM rate against
-    the operations at the card's peak for their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops32 / F32_OPS_PER_S + ops64 / F64_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def bytes_in(*ts):
-    """Bytes of the inputs, each storage read once (a stride-0 expand
-    counts its one row)."""
-    seen, total = set(), 0
-    for t in ts:
-        if t is None:
-            continue
-        s = t.untyped_storage()
-        if s.data_ptr() not in seen:
-            seen.add(s.data_ptr())
-            total += s.nbytes()
-    return total
-
-
-def bytes_out(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-# Operation counts, per coordinate of one instance, read off the plain
-# versions (the kernels do the same arithmetic).  An exp or log counts as
-# one operation at the float peak: a libm expf/logf is some ten float
-# instructions and one special-function op, so this errs toward a lower
-# bound.  Warp reductions count one add per term.
-def k1_ops_per_coord(dim, n_steps, n_ls=5):
-    step = dim * dim + 7 * dim + 8 + 3 * n_ls
-    if dim > 8:                      # the projected full-step candidate
-        step += 2 * dim + 4
-    return n_steps * step + 2 * dim + 9   # + the epilogue (x, gap)
-
-
-def k2_ops64_per_coord(dim, k, m_eq, polish_steps=2):
-    polish = dim * dim + 3 * dim + 2
-    cert = 2 * dim + 8 + 2 * k + 2 * m_eq
-    return polish_steps * polish + cert
-
-
-def k4_bytes(B, n, itemsize):
-    """Bytes K4's function must move: the lower triangle of each input
-    (all a Cholesky reads of a symmetric matrix) and the whole factor,
-    upper zeros included."""
-    return B * (n * (n + 1) // 2 + n * n) * itemsize
-
-
-def k3_ops(k, n, B, n_steps, n_cand):
-    """K3's operations for B instances of n coordinates over n_steps
-    steps that needed ``n_cand`` line-search candidates in all (the plain
-    version's ``count_candidates``).  Per coordinate and step: margins and
-    f0 (2k + 6, one log), gradient / 1/h / Woodbury sums (9 + 7k +
-    k(k + 1)), H^-1 g, H^-1 a and Schur sums (6 + 5k), dx, q, rows . dx and
-    the step bound (8 + 2k), the update (2); per candidate 7 and a log."""
-    per_step = 31 + 16 * k + k * (k + 1) + 1
-    return n * (B * n_steps * per_step + 8 * n_cand)
 
 
 def kernel_counts(*kernels):
@@ -698,17 +584,6 @@ def eq_fold_family(B, n, seed=2):
             np.array([W @ xf]), bad)
 
 
-def qp_fleet_data(n, m, p, B, seed):
-    """bench_scaling.py:871-881 from a numpy seed: P = M M' + I with M ~
-    N(0, 1/n); G, A ~ N(0, 1/n); b = 0; a_b ~ N(0, 1); ub_b ~ U(0.5, 1.5)."""
-    rng = np.random.default_rng(seed)
-    M = rng.standard_normal((n, n)) / np.sqrt(n)
-    return dict(P=M @ M.T + np.eye(n), a=rng.standard_normal((B, n)),
-                G=rng.standard_normal((m, n)) / np.sqrt(n),
-                h=rng.uniform(0.5, 1.5, (B, m)),
-                A=rng.standard_normal((p, n)) / np.sqrt(n), b=np.zeros(p))
-
-
 class PNorm:
     """f(x) = sum_j |x_j|^p with its diagonal Hessian in closed form (the
     zoo's TestMinPNorm objective, tests/test_problems_zoo.py:41-54, with
@@ -754,6 +629,7 @@ def fleet_routes(dev, kernels, B_screen=10000, qp_shapes=((128, 64, 4, 512),
                                           save_pytree)
     from cvx_tpu_torch.models import qp_certify
     from cvx_tpu_torch.models.qp import _certified_solution
+    from cvx_tpu_torch.solvers.structured import record_stages
     from cvx_tpu_torch.solvers import barrier_solve
 
     print("phase 4c: the fleet screen, the QP family, resume, minimize")
@@ -932,23 +808,25 @@ def fleet_routes(dev, kernels, B_screen=10000, qp_shapes=((128, 64, 4, 512),
               f"1e-6 ({dx:.2e}), not stalled")
     rng = np.random.default_rng(11)
     k = 4
-    c = rng.uniform(0.5, 1.5, n)
-    Ud = rng.uniform(0.0, 1.0, (k, n))
-    x_ref = np.full(n, 1.0 / n)
-    ubd = (Ud @ x_ref)[None, :] + rng.uniform(0.1, 0.3, (B_diag, k))
-    ad = rng.standard_normal((B_diag, n))
+    c, ad, Ud, ubd, x_ref = diagqp_data(B_diag, n, k, rng=rng)
     dq = DiagQP.create(c, ad, Ud, ubd, np.ones((1, n)), np.ones(1))
     sync()
     zero_counts(*kernels)
     t0 = time.perf_counter()
-    dsol = dq.solve_certified(torch.tensor(x_ref, device=dev),
-                              SolverParams(tol=1e-9, kkt_method="chol"))
+    with record_stages() as stages:
+        dsol = dq.solve_certified(torch.tensor(x_ref, device=dev),
+                                  SolverParams(tol=1e-9, kkt_method="chol"))
     sync()
     wall = time.perf_counter() - t0
     check_none(kernels, "DiagQP.solve_certified", sync)
     gap = float(dsol.duality_gap.abs().max())
+    # the masked loop runs each stage as long as its slowest instance: an
+    # instance whose last stage accepts null steps at a rounding floor
+    # takes max_iter there, as in the reference (ROADMAP Queue 3)
     print(f"  DiagQP solve_certified {B_diag} x n={n}, k={k}: {wall:.3f} s; "
-          f"max |gap| {gap:.3e}")
+          f"max |gap| {gap:.3e}; masked-loop steps {sum(stages[0])}, the "
+          f"largest stage {max(stages[0])} (by stage {stages[0]}), the "
+          f"longest instance {int(dsol.iters.max())}")
     check(gap <= CERT_GAP and not bool(dsol.stalled.any()),
           f"DiagQP batch: |gap| <= {CERT_GAP:g}, 0 stalled")
     # the LP family of tests/test_qp_model.py::TestLP::
@@ -1000,20 +878,25 @@ def fleet_routes(dev, kernels, B_screen=10000, qp_shapes=((128, 64, 4, 512),
     return rows
 
 
-def separable_data(K=64, nb=156, mb=32, p=8, seed=5):
-    """North-star config 5 (``bench_scaling.py:427-443``) from a numpy
-    seed, in the recipe's distributions: P = M M' + I, a and C normal, G
-    the first mb rows of [I; -I], u = 10, c = 0.1 normal."""
-    rng = np.random.default_rng(seed)
-    eye = np.eye(nb)
-    M = rng.standard_normal((K, nb, nb)) / np.sqrt(nb)
-    P = np.einsum("kij,klj->kil", M, M) + eye[None]
-    a = rng.standard_normal((K, nb))
-    G = np.tile(np.concatenate([eye, -eye])[None], (K, 1, 1))[:, :mb]
-    u = np.full((K, mb), 10.0)
-    C = rng.standard_normal((K, p, nb)) / np.sqrt(nb)
-    c = 0.1 * rng.standard_normal(p)
-    return P, a, G, u, C, c
+def ruiz_card(dev, B=64, n=100):
+    """Phase 4e: ``ops.ruiz_equilibrate0`` and ``apply_equilibration`` on a
+    batch of f64 SPD matrices (condition ~1e3) on the card, held to the
+    same calls on the CPU."""
+    from cvx_tpu_torch.ops import apply_equilibration, ruiz_equilibrate0
+
+    X = spd_batch(B, n, torch.float64, dev, seed=11)
+    b = torch.randn(B, n, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(12))
+    d, Q = ruiz_equilibrate0(X)
+    db = apply_equilibration(d, b.to(dev))
+    d_c, Q_c = ruiz_equilibrate0(X.cpu())
+    db_c = apply_equilibration(d_c, b)
+    err = max(float((u.cpu() - v).abs().max() / v.abs().max())
+              for u, v in ((d, d_c), (Q, Q_c), (db, db_c)))
+    check(d.device.type == "cuda" and err <= RUIZ_REL,
+          f"phase 4e: ruiz_equilibrate0 + apply_equilibration on the card, "
+          f"{B} x {n} f64: max rel diff {err:.3e} <= {RUIZ_REL:g} against "
+          "the CPU")
 
 
 def msharded_data(m, n, seed=0):
@@ -1523,6 +1406,9 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel_rows = parallel_routes(dev, kernels, smi, H, U)
     print(f"  phase 4d wall {time.perf_counter() - t0:.1f} s")
+
+    # 4e. the Ruiz variant, on the card against the same call on the CPU
+    ruiz_card(dev)
 
     # 5. times (CUDA events, in turns), with each kernel's bound
     print("phase 5: times (CUDA events)")

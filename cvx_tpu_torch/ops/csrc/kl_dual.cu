@@ -40,10 +40,11 @@
 // 0; every other shape): each pass walks i0 = 0, 32, ... with a runtime
 // trip count and re-reads the rows from global (L2) memory.  Both paths
 // add a lane's coordinates in the same order (c ascending) through the
-// same expressions, so they give the same bits.  At the main shape the
-// held kernel keeps the SMs' instruction schedulers busy most of the
-// time: what is left to gain there is fewer instructions, not shorter
-// chains.
+// same expressions; the streamed f32 path compensates the sums of the
+// value and the gradient (LaneSum below), so at n <= 128 the two agree to
+// rounding, not bit for bit.  At the main shape the held kernel keeps the
+// SMs' instruction schedulers busy most of the time: what is left to gain
+// there is fewer instructions, not shorter chains.
 //
 // Numerics follow the reference: IEEE exp/log/div/sqrt (no fast math, no
 // flush to zero), NaN-propagating min/max like jnp.maximum, and the same
@@ -119,6 +120,36 @@ template <typename T> __device__ __forceinline__ T warp_max(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(kFull, v, o));
   return v;
+}
+
+// A lane's running sum of its coordinates' terms.  Streamed, a lane adds
+// n/32 terms in turn, and their rounding errors add up with n: on bench.py's
+// family, where most terms are equal, to ~1e-5 of the sum at n = 10,000,
+// which gives the f32 dual value a false minimum ~5e-6 below the true one.
+// A lane then stops there (gap 1.4e-3 where the plain version's pairwise
+// sums reach 2.5e-6).  COMP = true compensates the sum (Kahan; --fmad=false
+// and no fast math keep the compiler from folding it away).  The streamed
+// f32 path compensates the sums of the value and the gradient, whose line
+// search and fallback decide the steps; the Hessian's sums only shape the
+// direction and stay plain.  A held lane adds at most kHeldNC terms.
+template <typename T, bool COMP> struct LaneSum {
+  T s = T(0);
+  __device__ __forceinline__ void add(T v) { s += v; }
+  __device__ __forceinline__ T total() const { return s; }
+};
+template <typename T> struct LaneSum<T, true> {
+  T s = T(0), c = T(0);
+  __device__ __forceinline__ void add(T v) {
+    const T y = v - c;
+    const T t = s + y;
+    c = (t - s) - y;
+    s = t;
+  }
+  __device__ __forceinline__ T total() const { return s - c; }
+};
+// compensated: the streamed path in f32
+template <int NC, typename T> __host__ __device__ constexpr bool comp_sums() {
+  return NC == 0 && sizeof(T) == sizeof(float);
 }
 
 // packed upper triangle (i <= j) of a DIM x DIM symmetric matrix
@@ -342,6 +373,7 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P,
                                       int n_steps, T z0, int n_ls, int lane) {
   constexpr int NP = DIM * (DIM + 1) / 2;
   constexpr bool copy = DIM <= kCopyMaxDim;
+  constexpr bool kc = comp_sums<NC, T>();
   const int k = rows_k<DIM, NC>(P);
   Held<DIM, NC, T, T> S;
   hold<DIM, NC>(P, lane, S);
@@ -362,9 +394,8 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P,
 
   for (int it = 0; it < n_steps; ++it) {
     // pass 1: y = p exp(-B'z - 1); s_j = sum y B_j; acc_ab = sum y B_a B_b
+    LaneSum<T, kc> sl[DIM];
     T s[DIM], acc[NP];
-#pragma unroll
-    for (int a = 0; a < DIM; ++a) s[a] = T(0);
 #pragma unroll
     for (int a = 0; a < NP; ++a) acc[a] = T(0);
     T ys[NC > 0 ? NC : 1];  // held: pass 1's y, reused by pass 2
@@ -375,13 +406,13 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P,
 #pragma unroll
       for (int a = 0; a < DIM; ++a) {
         const T ya = y * h[a];
-        s[a] += ya;
+        sl[a].add(ya);
 #pragma unroll
         for (int b = a; b < DIM; ++b) acc[pidx<DIM>(a, b)] += ya * h[b];
       }
     });
 #pragma unroll
-    for (int a = 0; a < DIM; ++a) s[a] = warp_sum(s[a]);
+    for (int a = 0; a < DIM; ++a) s[a] = warp_sum(sl[a].total());
 #pragma unroll
     for (int a = 0; a < NP; ++a) acc[a] = warp_sum(acc[a]);
 
@@ -455,11 +486,8 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P,
     // gradient, and (DIM > 8) the projected candidate's value
     const T neg_tdeep = -(t_full * scale_deep);
     const T neg_tstar = -t_star;
+    LaneSum<T, kc> lsl[kMaxLs], gsl[DIM], sprl;
     T ls[kMaxLs], gs[DIM];
-#pragma unroll
-    for (int l = 0; l < kMaxLs; ++l) ls[l] = T(0);
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) gs[j] = T(0);
     T cmax = -inf, spr = T(0);
     each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c,
                                            int) {
@@ -475,22 +503,22 @@ __device__ __noinline__ void newton_z(const Rows<R, LP>& P,
 #pragma unroll
       for (int l = 0; l < kMaxLs; ++l) {
         if (l < n_ls) {
-          ls[l] += y * efac;
+          lsl[l].add(y * efac);
           efac = efac * efac;
         }
       }
       const T ystar = y * kexp(jclip(neg_tstar * wdir, -max_e, max_e));
 #pragma unroll
-      for (int j = 0; j < DIM; ++j) gs[j] += h[j] * ystar;
-      if constexpr (DIM > 8) spr += y_of<DIM>(zpr, h, k, lp);
+      for (int j = 0; j < DIM; ++j) gsl[j].add(h[j] * ystar);
+      if constexpr (DIM > 8) sprl.add(y_of<DIM>(zpr, h, k, lp));
     });
 #pragma unroll
     for (int l = 0; l < kMaxLs; ++l)
-      if (l < n_ls) ls[l] = warp_sum(ls[l]);
+      ls[l] = l < n_ls ? warp_sum(lsl[l].total()) : T(0);
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) gs[j] = warp_sum(gs[j]);
+    for (int j = 0; j < DIM; ++j) gs[j] = warp_sum(gsl[j].total());
     cmax = warp_max(cmax);
-    if constexpr (DIM > 8) spr = warp_sum(spr);
+    if constexpr (DIM > 8) spr = warp_sum(sprl.total());
 
     // a lane whose deepest exponent already clips scores every candidate
     // on a distorted factor: disqualify the whole chain
@@ -601,18 +629,17 @@ kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
   Held<DIM, NC, T, T> S;
   hold<DIM, NC>(P, lane, S);
   T ys[NC > 0 ? NC : 1];  // held: the exp serves sum(y) and x
-  T sy = T(0);
+  LaneSum<T, comp_sums<NC, T>()> syl, fpl;
   each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c, int) {
     const T y = y_of<DIM>(z, h, k, lp);
     if constexpr (NC > 0) ys[c] = y;
-    sy += y;
+    syl.add(y);
   });
-  sy = warp_sum(sy);
+  const T sy = warp_sum(syl.total());
   // sum(y) underflowed to 0 (the unbounded dual of an infeasible
   // instance): the gap is +inf instead of NaN
   const bool dead = sy <= T(0);
   const T den = dead ? T(1) : sy;
-  T fp = T(0);
   T* xb = x + (long long)b * n;
   each_coord<DIM, NC, T>(P, lane, S, [&](const T(&h)[DIM], T lp, int c,
                                          int i) {
@@ -623,9 +650,9 @@ kl_dual_kernel(const T* __restrict__ H, const T* __restrict__ u,
       y = y_of<DIM>(z, h, k, lp);
     const T xi = y / den;
     xb[i] = xi;
-    fp += xi * (klog(xi > T(0) ? xi : T(1)) - lp);
+    fpl.add(xi * (klog(xi > T(0) ? xi : T(1)) - lp));
   });
-  fp = warp_sum(fp);
+  const T fp = warp_sum(fpl.total());
   if (lane == 0) {
     T val = sy;
 #pragma unroll

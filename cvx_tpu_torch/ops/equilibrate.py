@@ -51,6 +51,23 @@ def ruiz_equilibrate(H, *, max_iter: int = 20, tol: float = 1e-6,
     return d, _scaled(H, d)
 
 
+def ruiz_equilibrate0(H, *, l2_rounds: int = 5):
+    """The second Ruiz variant (MatrixUtils.scala:278-307
+    ``ruizEquilibrate0``): one l-infinity round, then ``l2_rounds`` fixed
+    l2 rounds with no convergence test; zero rows keep scale 1.  Returns
+    ``(d, Q)`` as ``ruiz_equilibrate`` does, for (..., n, n)."""
+    f = torch.sqrt(torch.abs(H).amax(dim=-1))
+    d = torch.where(f > 0, 1.0 / torch.where(f > 0, f, 1.0), 1.0)
+    for _ in range(l2_rounds):
+        d = _sweep(H, d)[0]
+    return d, _scaled(H, d)
+
+
+def apply_equilibration(d, b):
+    """Scale a right-hand side (or unscale a solution): ``d * b``."""
+    return d * b
+
+
 def hs_norm(A):
     """Hilbert-Schmidt (Frobenius) norm (MatrixUtils.scala:19, 204)."""
     return torch.sqrt(torch.sum(A * A, dim=(-2, -1)))

@@ -37,7 +37,9 @@ The kernels take any batch and row stride for ``Hs``/``A`` (a stride-0
 ``u``/``r``; the lane axis n must be contiguous.  The C launchers pick the
 kernel's path by shape: f32 rows with dual dim <= 8, mE = 0 and n <= 128
 are held in registers through the solve, every other shape is streamed
-from L2 in each pass; the two give the same bits.
+from L2 in each pass.  A streamed f32 lane adds n/32 terms a sum, and
+compensates (Kahan) the sums of the value and the gradient: uncompensated,
+their rounding gave the dual value a false minimum at n = 10,000.
 """
 
 from __future__ import annotations

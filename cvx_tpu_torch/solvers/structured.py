@@ -20,6 +20,7 @@ the whole batch; ub (B, k), b (B, p) and x0 (B, n) are per instance.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -28,6 +29,22 @@ from ..ops.cholesky import _chol_nan, default_delta
 from ..tree import exact_f32
 from .barrier import initial_t
 from .types import Solution, SolverParams
+
+
+_stage_logs: list[list] = []
+
+
+@contextlib.contextmanager
+def record_stages():
+    """Within the block, each call of ``barrier_solve_structured`` appends
+    to the yielded list the steps of its masked inner loop, one count per
+    outer stage (the batch's largest inner count in that stage)."""
+    log: list = []
+    _stage_logs.append(log)
+    try:
+        yield log
+    finally:
+        _stage_logs.remove(log)
 
 
 def _woodbury_solver(h, U, w, delta):
@@ -168,6 +185,7 @@ def barrier_solve_structured(obj, U, ub, A, b, x0,
         return ~done & (outer_it < pars.outer_max_iter) & (t <= t_max)
 
     go = outer_go(x, t, outer_it)
+    stage_steps = []
     while bool(go.any()):
         # the inner Newton loop, for the instances still in the outer one
         xi = x
@@ -176,6 +194,7 @@ def barrier_solve_structured(obj, U, ub, A, b, x0,
         stalled = torch.zeros(Bt, dtype=torch.bool, device=dev)
         hard_i = torch.zeros(Bt, dtype=torch.bool, device=dev)
         inner = go & (dec > tol) & (it < pars.max_iter) & ~stalled
+        stage_steps.append(0)
         while bool(inner.any()):
             xn, decn, stn = newton_step(t, xi)
             xi = torch.where(inner[:, None], xn, xi)
@@ -184,12 +203,15 @@ def barrier_solve_structured(obj, U, ub, A, b, x0,
             hard_i = hard_i | (inner & stn & (m / t > hard_stall_gap))
             it = it + inner.to(torch.long)
             inner = inner & (dec > tol) & (it < pars.max_iter) & ~stalled
+            stage_steps[-1] += 1
         x = torch.where(go[:, None], xi, x)
         n_newton = n_newton + torch.where(go, it, 0)
         hard = hard | (go & hard_i)
         t = torch.where(go, pars.mu * t, t)
         outer_it = outer_it + go.to(torch.long)
         go = go & outer_go(x, t, outer_it)
+    for log in _stage_logs:
+        log.append(stage_steps)
 
     # exit-state sanity: active margins at the final t are ~1/(t lam) and
     # legitimately round to ~0 through ub - U x, so allow rounding slack

@@ -260,7 +260,8 @@ def time_cases(dev):
         out.append((f"10000 x n={n} dim 3",
                     ("K1", "K2", "K1f64") if n == 100 else ("K1", "K2"),
                     (t(H)[None].expand(10000, -1, -1), t(U), None, None)))
-    for k, m_eq in ((1, 0), (2, 1), (3, 0), (4, 0), (7, 0), (8, 0), (15, 0)):
+    for k, m_eq in ((1, 0), (2, 1), (3, 0), (4, 0), (7, 0), (8, 0), (11, 0),
+                    (15, 0)):
         H, U, A, R = random_family(k, m_eq, 100, 10000)
         out.append((f"10000 x n=100 dim {k + 1 + m_eq}", ("K1", "K2"),
                     (t(H)[None].expand(10000, -1, -1), t(U),
