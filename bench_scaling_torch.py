@@ -192,11 +192,16 @@ class Ladder:
         expect = {k: (want.get(k, 0) if self.cuda else 0) for k in KERNELS}
         return launches == expect
 
-    def kernel(self, name, fn, nbytes, ops32=0.0, ops64=0.0, library=None):
-        """The kernel timed alone, with its bound (and a library call)."""
+    def kernel(self, name, fn, nbytes, ops32=0.0, ops64=0.0, library=None,
+               matmul=False):
+        """The kernel timed alone, with its bound (and a library call);
+        ``matmul``: its f64 operations have a matrix-product shape."""
+        ops64_tc = 0.0
         if self.dtype == torch.float64:
             ops32, ops64 = 0.0, ops32 + ops64
-        bms, by = bound(nbytes, ops32, ops64)
+            if matmul:
+                ops64, ops64_tc = 0.0, ops64
+        bms, by = bound(nbytes, ops32, ops64, ops64_tc)
         rec = dict(name=name, kernel_ms=self.events(fn), bound_ms=bms,
                    bound_by=by)
         if library is not None:
@@ -736,7 +741,7 @@ def batched_small_cholesky(L):
             "cholesky_batched_cuda", lambda: cholesky_batched(X,
                                                               method=method),
             k4_bytes(B, n, item), ops32=B * n ** 3 / 3,
-            library=lambda: torch.linalg.cholesky_ex(X))
+            library=lambda: torch.linalg.cholesky_ex(X), matmul=True)
         L.emit("batched_small_cholesky", f"batched_chol_n{n}_b{B}",
                dict(launched=L.launched(launches, cholesky_batched_cuda=1),
                     against_cholesky_ex=rel <= tol,

@@ -224,21 +224,29 @@ def spd_batch(B, n, dtype, dev, seed):
 def k4_cases(dev):
     """(name, X) for phase 3's K4 checks, one lane of each not SPD: the
     sweep's n and a ragged one, n = 1, 2 and 33, the held path's last n
-    and the panel path's first in each type; at n = 100 a failed pivot in
-    column 0, a zero pivot (row and column 50 zero: the pivot is exactly
-    0, 1/sqrt(0) = inf and 0 * inf = NaN) and a failed pivot in the last,
-    ragged column block."""
-    from cvx_tpu_torch.ops.chol import held_max_n
+    and the panel path's first in each type; on the panel path ragged n
+    (257 and 500 in f32, 300 in f64), ``max_n(dtype)`` at a small batch
+    and a failed pivot in a late column block (n = 512, pivot 300); at n =
+    100 a failed pivot in column 0, a zero pivot (row and column 50 zero:
+    the pivot is exactly 0, 1/sqrt(0) = inf and 0 * inf = NaN) and a
+    failed pivot in the last, ragged column block."""
+    from cvx_tpu_torch.ops.chol import held_max_n, max_n
 
     out = []
     for dtype in (torch.float32, torch.float64):
         held = held_max_n(dtype)
+        ragged = {(257, 11), (500, 7)} if dtype == torch.float32 else {
+            (300, 11)}
         for n, B in sorted({(1, 67), (2, 67), (33, 67), (77, 67), (100, 67),
                             (128, 67), (held, 67), (held + 1, 67), (256, 23),
-                            (512, 13)}):
+                            (512, 13), (max_n(dtype), 3)} | ragged):
             X = spd_batch(B, n, dtype, dev, seed=n)
             X[B // 2, n // 3, n // 3] = -1.0   # one lane is not SPD
             out.append((f"{str(dtype)[6:]} B={B} n={n}", X))
+        X = spd_batch(13, 512, dtype, dev, seed=1512)
+        X[6, 300, 300] = -1.0
+        out.append((f"{str(dtype)[6:]} B=13 n=512, failed pivot in column "
+                    "300 (a late column block)", X))
         for m, where in enumerate(("failed pivot in column 0",
                                    "zero pivot in column 50",
                                    "failed pivot in column 97 (last block)")):
@@ -1392,6 +1400,26 @@ def main() -> int:
     # the path's own factor against the plain version at the path's shape
     k4_err = compare_k4("the path's f32 B=4096 n=100", Xc,
                         cholesky_batched_cuda, cholesky_batched_plain, Lk=Lc)
+    # the same entry point on the panel path (n > 192), the ladder's 256 x
+    # 512
+    Xp = spd_batch(256, 512, torch.float32, dev, seed=8)
+    torch.cuda.synchronize()
+    zero_counts(*kernels)
+    Lp = cholesky_batched(Xp, method="cuda")
+    torch.cuda.synchronize()
+    launches = kernel_counts(*kernels)
+    check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 1},
+          "cholesky_batched(method='cuda') at 256 x 512 (the panel path) "
+          "launched K4 once")
+    main_launches["cholesky_batched_cuda_panel"] = launches[
+        "cholesky_batched_cuda"]
+    check(bool(torch.isfinite(Lp).all()) and tuple(Lp.shape) == (256, 512,
+                                                                  512),
+          "cholesky_batched: L finite, shape (256, 512, 512)")
+    k4p_err = compare_k4("the panel path's f32 B=256 n=512", Xp,
+                         cholesky_batched_cuda, cholesky_batched_plain, Lk=Lp)
+    del Xp, Lp
 
     # 4b. the generic core, held to the certified dual slice's x
     t0 = time.perf_counter()
@@ -1475,28 +1503,38 @@ def main() -> int:
           f"candidates {n_cand} ({n_cand / (10000 * 21):.4f} per step), "
           f"bound {record['kl_barrier_fused']['bound'][0]:.5f} ms  [{smi}]")
 
+    # the held path's shapes and the panel path's (n > 192) in each type
     chol_rows = []
-    for B, n in ((4096, 100), (4096, 128), (1024, 256), (256, 512)):
-        X = spd_batch(B, n, torch.float32, dev, seed=B + n)
+    for B, n, dtype in ((4096, 100, torch.float32), (4096, 128, torch.float32),
+                        (1024, 256, torch.float32), (256, 512, torch.float32),
+                        (1024, 256, torch.float64), (256, 512, torch.float64)):
+        X = spd_batch(B, n, dtype, dev, seed=B + n)
         best, runs = in_turns(
             {"plain": lambda: cholesky_batched_plain(X),
              "kernel": lambda: cholesky_batched_cuda(X),
              "library": lambda: torch.linalg.cholesky_ex(X)},
             {"plain": 3, "kernel": 20, "library": 20},
             ("plain", "kernel", "library", "library", "kernel", "plain"))
-        bms, by = bound(k4_bytes(B, n, 4), ops32=B * n ** 3 / 3)
-        chol_rows.append(dict(B=B, n=n, ms=best["kernel"],
-                              plain_ms=best["plain"],
+        # a Cholesky's updates are matrix products: f64 at the tensor
+        # cores' rate
+        ops = {"ops32" if dtype == torch.float32 else "ops64_tc":
+               B * n ** 3 / 3}
+        bms, by = bound(k4_bytes(B, n, X.element_size()), **ops)
+        chol_rows.append(dict(B=B, n=n, dtype=str(dtype)[6:],
+                              ms=best["kernel"], plain_ms=best["plain"],
                               library_ms=best["library"], bound_ms=bms,
                               bound_by=by))
-        print(f"  cholesky f32 {B} x {n}: kernel {runs['kernel']} ms, plain "
-              f"{runs['plain']} ms, torch.linalg.cholesky_ex "
-              f"{runs['library']} ms, bound {bms:.4f} ms ({by})  [{smi}]")
-    head = chol_rows[0]
-    record["cholesky_batched_cuda"] = dict(
-        ms=head["ms"], plain_ms=head["plain_ms"],
-        library_ms=head["library_ms"],
-        bound=(head["bound_ms"], head["bound_by"]))
+        print(f"  cholesky {str(dtype)[6:]} {B} x {n}: kernel "
+              f"{runs['kernel']} ms, plain {runs['plain']} ms, "
+              f"torch.linalg.cholesky_ex {runs['library']} ms, bound "
+              f"{bms:.4f} ms ({by})  [{smi}]")
+    # the kernels line: the held path at 4096 x 100, the panel path (its
+    # own __global__ function) at phase 4's 256 x 512, both f32
+    for key, row in (("cholesky_batched_cuda", chol_rows[0]),
+                     ("cholesky_batched_cuda_panel", chol_rows[3])):
+        record[key] = dict(ms=row["ms"], plain_ms=row["plain_ms"],
+                           library_ms=row["library_ms"],
+                           bound=(row["bound_ms"], row["bound_by"]))
     print(json.dumps({"cholesky_sweep": chol_rows, "card": smi}))
 
     # 6. where the time goes: host wall and device busy share of each path
@@ -1541,13 +1579,17 @@ def main() -> int:
     srcs = {"kl_dual_fused": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_dual_fused_cert": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_barrier_fused": "cvx_tpu_torch/ops/csrc/kl_barrier.cu",
-            "cholesky_batched_cuda": "cvx_tpu_torch/ops/csrc/chol.cu"}
+            "cholesky_batched_cuda": "cvx_tpu_torch/ops/csrc/chol.cu",
+            "cholesky_batched_cuda_panel": "cvx_tpu_torch/ops/csrc/chol.cu"}
     replaces = {"kl_dual_fused": "cvx_tpu/ops/pallas_kl_dual.py:953",
                 "kl_dual_fused_cert": "cvx_tpu/ops/pallas_kl_dual.py:836",
                 "kl_barrier_fused": "cvx_tpu/ops/pallas_kl.py:295",
-                "cholesky_batched_cuda": "cvx_tpu/ops/pallas_chol.py:139"}
+                "cholesky_batched_cuda": "cvx_tpu/ops/pallas_chol.py:139",
+                "cholesky_batched_cuda_panel":
+                    "cvx_tpu/ops/pallas_chol.py:139"}
     errs = {"kl_dual_fused": k1_err, "kl_dual_fused_cert": k2_err,
-            "kl_barrier_fused": k3_err, "cholesky_batched_cuda": k4_err}
+            "kl_barrier_fused": k3_err, "cholesky_batched_cuda": k4_err,
+            "cholesky_batched_cuda_panel": k4p_err}
     line = {"kernels": []}
     for kname, rec in record.items():
         bms, by = rec["bound"]

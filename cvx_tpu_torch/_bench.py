@@ -43,11 +43,13 @@ PRIMAL_CERT = 1e-4   # host f64 certificate of the primal slice's f32 x
 PRODUCTION = dict(max_iter=3, mu=55.0, tol=1e-8)   # bench.py's schedule
 TOL_FEAS = 1e-7    # the QP family's residual contract (tol_feas)
 
-# the card's peak rates (NVIDIA's H100 SXM data sheet; f64 outside the
-# tensor cores)
+# the card's peak rates (NVIDIA's H100 SXM data sheet): f32 and f64
+# outside the tensor cores, and f64 on them (mma.sync ... .f64), which a
+# function shaped like a matrix product (a Cholesky's updates) can use
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
+F64_TC_OPS_PER_S = 67e12
 
 
 # ------------------------------------------------------------------ data
@@ -124,11 +126,14 @@ def diagqp_data(B, n=100, k=4, rng=None):
 
 
 # ---------------------------------------------------------------- bounds
-def bound(nbytes, ops32=0.0, ops64=0.0):
+def bound(nbytes, ops32=0.0, ops64=0.0, ops64_tc=0.0):
     """(least ms, what sets it): the bytes moved at the HBM rate against
-    the operations at the card's peak for their type."""
+    the operations at the card's peak for their type; ``ops64_tc`` are
+    f64 operations of a matrix-product shape, at the tensor cores' f64
+    rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops32 / F32_OPS_PER_S + ops64 / F64_OPS_PER_S
+    t_ops = (ops32 / F32_OPS_PER_S + ops64 / F64_OPS_PER_S
+             + ops64_tc / F64_TC_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 

@@ -8,8 +8,10 @@ Counterpart of ``cvx_tpu/ops/pallas_chol.py``.  One kernel, in
   ``_chol_tile_kernel`` (``pallas_call`` at pallas_chol.py:139): the lower
   Cholesky factor of a batch of SPD matrices, its strict upper triangle
   zeroed.  Up to ``held_max_n(dtype)`` the kernel holds the matrix in
-  registers and factors it column by column (the held path); above, it
-  stages column blocks of bk = 32 in shared memory (the panel path).
+  registers and factors it column by column (the held path); above, up to
+  ``max_n(dtype)``, it factors column blocks of bk = 32 left-looking,
+  the update of each a register-tiled product over the earlier columns
+  (the panel path).
 
 ``cholesky_batched_plain`` is the same algorithm in PyTorch ops (not
 ``torch.linalg.cholesky``).  The TPU kernel padded n to a multiple of 128
@@ -37,7 +39,8 @@ from . import _build
 _BK = 32           # column block width (kBk in csrc/chol.cu)
 # the held path's largest n (kHeldMaxN, kHeldMaxNF64 in csrc/chol.cu)
 _HELD_MAX_N = {torch.float32: 192, torch.float64: 192}
-_SMEM = 232448     # shared memory one block may use on Hopper, bytes
+# the largest n the launcher takes (kMaxN, kMaxNF64 in csrc/chol.cu)
+_MAX_N = {torch.float32: 1760, torch.float64: 880}
 
 
 def cholesky_batched_plain(x: torch.Tensor) -> torch.Tensor:
@@ -68,9 +71,10 @@ def _check(x):
 
 
 def max_n(dtype) -> int:
-    """Largest n the kernel takes: its panel, n x (bk + 1) elements, must
-    fit one block's shared memory."""
-    return _SMEM // ((_BK + 1) * torch.finfo(dtype).bits // 8)
+    """Largest n the kernel takes: the limit the first panel design's
+    shared memory set (n x (bk + 1) elements in 232,448 bytes), kept by
+    the launcher; the left-looking panel path does not need it."""
+    return _MAX_N[dtype]
 
 
 def held_max_n(dtype) -> int:
@@ -101,8 +105,7 @@ def cholesky_batched_cuda(x: torch.Tensor) -> torch.Tensor:
     B, n, _ = x.shape
     if n > max_n(x.dtype):
         raise ValueError(f"cholesky_batched_cuda: n = {n} > {max_n(x.dtype)}"
-                         f", the largest {x.dtype} panel that fits one "
-                         "block's shared memory")
+                         f", the largest {x.dtype} n the kernel takes")
     if n > 1 and x.stride(2) != 1:
         raise ValueError("cholesky_batched_cuda: the columns of x must be "
                          "contiguous (stride 1); call .contiguous()")

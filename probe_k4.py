@@ -12,23 +12,42 @@ together, into ``_probe/build`` (gitignored):
   rs * rs (one multiply fewer per row and column, other roundings);
 * ``lb4``: ``__launch_bounds__(256, 4)`` on the held kernel (64 registers);
 * ``panel``: every n on the panel path;
+* the panel path's shapes (the committed: bk = 32, register tiles of 4
+  slabs x 4 columns, a ring of 3 tiles, registers for 2 blocks an SM):
+  ``bk64`` (column blocks of 64, tiles of 4 x 8), ``tile84`` (8 x 4),
+  ``tile84_1blk`` (8 x 4, registers for 1 block an SM), ``tile48`` (4 x
+  8) and ``ring4`` (a ring of 4);
+  ``elemcopy``: L's tiles copied element by element at every n (the
+  committed source copies 16 bytes at a time where n allows);
+  ``oneslab``: the update's product as one body of kTm slabs a chunk,
+  the chunk's empty slabs skipped by runtime tests (the committed source
+  compiles a body for each slab count);
 * ``nosync``: the held path's barrier per column cut out, so that its
   results are wrong and only its time is read: what the barriers and the
-  column chain's latency cost.
+  column chain's latency cost;
+* time-only, what each step of the panel path costs: ``noproduct`` (the
+  update's fmas cut out, and with them its shared loads: the copies and
+  barriers remain), ``nodiag`` (the diagonal tile's factor cut out) and
+  ``nosolve`` (the rows' solve cut out);
+* time-only, what each step of the first baseline's panel kernel cost (a
+  right-looking factor, the first panel design): ``parent_notrail`` (its
+  trailing update cut out) and ``parent_norank1`` (its in-block rank-1
+  updates cut out).
 
 Prints the registers, spill and shared memory of every kernel instance;
-holds every variant but ``nosync`` to the plain version with
+holds every variant but the time-only ones to the plain version with
 ``chip_smoke.compare_k4``'s checks (NaN pattern, max |dL|, backward error
 against ``torch.linalg.cholesky``'s, upper triangle 0) on every case of
-``chip_smoke.k4_cases``; with ``--sass`` lists the loops of the SASS
-(``cuobjdump -sass``: each backward branch, its static instructions and
-their opcodes) of the f32 panel kernel and of the held kernel at n = 100;
-with ``--time`` times every variant, the baseline and
-``torch.linalg.cholesky_ex`` with CUDA events in turns (forward, then
-backward) at 4096 x 100 and 4096 x 128 (f32, f64), either side of the held
-path's limits (f32 4096 x 129 / 144 / 160 / 176 / 192 / 193, f64 4096 x
-144 / 192 / 193) and at the sweep's panel
-shapes 1024 x 256 and 256 x 512.
+``chip_smoke.k4_cases``, and on the held path's cases (n <= 192) the
+committed source to the first baseline bit for bit; with ``--sass`` lists
+the loops of the SASS (``cuobjdump -sass``: each backward branch, its
+static instructions and their opcodes) of the f32 panel kernels (committed
+and baseline) and of the held kernel at n = 100; with ``--time`` times
+every variant, the baseline and ``torch.linalg.cholesky_ex`` with CUDA
+events in turns (forward, then backward) at 4096 x 100 and 4096 x 128
+(f32, f64), either side of the held path's limits (f32 4096 x 129 / 144 /
+160 / 176 / 192 / 193, f64 4096 x 144 / 192 / 193) and at the sweep's
+panel shapes 1024 x 256 and 256 x 512 (f32 and f64).
 
     python3 probe_k4.py [--baseline OLD.cu ...] [--time] [--sass] [--out DIR]
 
@@ -37,7 +56,8 @@ interface, e.g. ``git show <commit>:cvx_tpu_torch/ops/csrc/chol.cu``;
 the first is named ``baseline``, the next ``baseline_2`` and so on.
 Needs a CUDA device and nvcc; writes nvcc's reports to
 ``DIR/ptxas_<variant>.txt`` and the whole log to ``DIR/log.txt`` (default
-``_probe/build``).  Exit code 1 if the committed source fails a check.
+``_probe/build``).  Exit code 1 if the committed source fails a check or
+differs from the first baseline in a bit on a held-path case.
 """
 
 from __future__ import annotations
@@ -63,7 +83,8 @@ BUILD = ROOT / "_probe" / "build"
 _ARGS = [_build._P, _build._I64, _build._I64, _build._P, _build._I32,
          _build._I32, _build._P]
 SIG = {"chol_batched_f32": _ARGS, "chol_batched_f64": _ARGS}
-TIME_ONLY = ("nosync",)
+TIME_ONLY = ("nosync", "noproduct", "nodiag", "nosolve", "parent_notrail",
+             "parent_norank1")
 _LOG = []
 
 
@@ -99,9 +120,37 @@ def variants(baseline):
                             "__launch_bounds__(kSide * kSide, 4)")
     out["panel"] = re.sub(r"constexpr int kHeldMaxN(F64)? = \d+;",
                           r"constexpr int kHeldMaxN\1 = 0;", src)
+    def shape(bk=32, tm=4, tn=4, stages=3, blocks=2):
+        v = src
+        for key, val in (("kBk", bk), ("kTm", tm), ("kTn", tn),
+                         ("kStages", stages), ("kMinBlocks", blocks)):
+            v = re.sub(rf"constexpr int {key} = \d+;",
+                       f"constexpr int {key} = {val};", v)
+        return v
+    out["bk64"] = shape(bk=64, tn=8)
+    out["tile84"] = shape(tm=8)
+    out["tile84_1blk"] = shape(tm=8, blocks=1)
+    out["tile48"] = shape(tn=8)
+    out["ring4"] = shape(stages=4)
+    out["elemcopy"] = substitute(src, "const bool vec = n %",
+                                 "const bool vec = false && n %")
+    out["oneslab"] = substitute(src, "update_slabs<T, VL, kTm>(sc, stage,",
+                                "update_chunk<T, VL, kTm>(sc, stage,")
     loop_sync = "    __syncthreads();\n    T* t = cj;"
     out["nosync"] = substitute(src, loop_sync,
                                loop_sync.replace("__syncthreads();", ""))
+    out["noproduct"] = substitute(
+        src, "acc[i][j] = kfma(ra[i][v], rb[j][v], acc[i][j]);", ";")
+    out["nodiag"] = substitute(src, "if (tid < 32) factor_diag",
+                               "if (tid < 0) factor_diag")
+    out["nosolve"] = substitute(src, "if (r < rows) solve_row",
+                                "if (r < 0) solve_row")
+    if "baseline" in out:     # the first, right-looking panel kernel
+        old = out["baseline"]
+        for name, loop in (("parent_notrail", "e < mt * mt;"),
+                           ("parent_norank1", "e < mr * wr;")):
+            if old.count(loop) == 1:
+                out[name] = old.replace(loop, "e < 0;")
     return out
 
 
@@ -110,6 +159,9 @@ def parse_ptxas(report):
     "panel f": {...}, ...}"""
     names = ((r"chol_held_kernelI([fd])Li(\d+)E",
               lambda m: f"held {m[1]} G={m[2]}"),
+             (r"chol_panel_kernelI([fd])Lb([01])E",
+              lambda m: f"panel {m[1]} left-looking"
+                        f"{' 16-byte copies' if m[2] == '1' else ''}"),
              (r"chol_kernelI([fd])E", lambda m: f"panel {m[1]}"))
     res, cur = {}, None
     for line in report.splitlines():
@@ -124,10 +176,34 @@ def parse_ptxas(report):
                       line)
         if m and cur is not None:
             cur["spill"] = f"{m[1]}/{m[2]}"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
-            cur["regs"], cur["smem"] = int(m[1]), int(m[2])
+            cur["regs"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m[1]) if m else 0
     return res
+
+
+def panel_smem(src, f64):
+    """Dynamic shared memory of the panel kernel, bytes, from the source's
+    constants (``Panel<T, kBk, kTm, kTn>::smem()``)."""
+    c = {m[1]: int(m[2]) for m in
+         re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    size = 8 if f64 else 4
+    vec, kt = 16 // size, 8 if f64 else 16
+    rows = c["kThreads"] // (c["kBk"] // c["kTn"]) * c["kTm"]
+    stage = (rows + c["kBk"]) * (kt + vec)
+    return (c["kStages"] * stage + rows * (c["kBk"] + 1) + c["kBk"] ** 2
+            + c["kBk"]) * size
+
+
+def blocks_per_sm(rec, threads=256):
+    """Blocks of ``threads`` one SM holds by registers (65,536, allocated
+    in units of 8 a thread) and shared memory (233,472 bytes, 1 KB of it
+    reserved a block)."""
+    regs = -(-rec["regs"] // 8) * 8
+    smem = rec["smem"] + rec["dyn_smem"]
+    return min(65536 // (regs * threads), 233472 // (smem + 1024), 8)
 
 
 def build(srcs, out):
@@ -148,8 +224,14 @@ def build(srcs, out):
         if proc.returncode:
             say(f"nvcc FAILED on {name}:\n{report[-3000:]}")
             continue
+        res = parse_ptxas(report)
+        for label, rec in res.items():
+            if "left-looking" in label:
+                rec["dyn_smem"] = panel_smem(src=srcs[name],
+                                             f64=label.startswith("panel d"))
+                rec["blocks_per_sm"] = blocks_per_sm(rec)
         say(f"ptxas {name} (done {time.perf_counter() - t0:.0f} s after the "
-            "start)", json.dumps(parse_ptxas(report), sort_keys=True))
+            "start)", json.dumps(res, sort_keys=True))
         libs[name] = _build.bind(BUILD / f"{name}.so", SIG,
                                  "chol_error_string")
     return libs
@@ -192,11 +274,21 @@ def run(lib, X):
 
 
 def check(libs, dev):
-    """Every variant but the time-only ones on every phase-3 case; returns
-    the names of those that failed a check."""
+    """Every variant but the time-only ones on every phase-3 case, and the
+    committed source against the first baseline bit for bit on the held
+    path's; returns the names of those that failed a check ("committed"
+    also where a held case's bits differ)."""
+    from cvx_tpu_torch.ops.chol import held_max_n
+
     failed = set()
     for cname, X in k4_cases(dev):
         line = [cname]
+        if "baseline" in libs and X.shape[-1] <= held_max_n(X.dtype):
+            same = torch.equal(run(libs["committed"], X).view(torch.uint8),
+                               run(libs["baseline"], X).view(torch.uint8))
+            line.append(f"held path: same bits as the baseline {same}")
+            if not same:
+                failed.add("committed")
         for name, lib in libs.items():
             if name in TIME_ONLY:
                 continue
@@ -224,7 +316,8 @@ def time_all(libs, dev, smi):
               (4096, 192, torch.float32), (4096, 193, torch.float32),
               (4096, 144, torch.float64), (4096, 192, torch.float64),
               (4096, 193, torch.float64),
-              (1024, 256, torch.float32), (256, 512, torch.float32)]
+              (1024, 256, torch.float32), (256, 512, torch.float32),
+              (1024, 256, torch.float64), (256, 512, torch.float64)]
     for B, n, dtype in shapes:
         X = spd_batch(B, n, dtype, dev, seed=B + n)
         fns = {name: (lambda lib=lib: run(lib, X))
@@ -274,7 +367,7 @@ def main() -> int:
     say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
     if args.sass:
         for name, key in (("committed", "chol_held_kernelIfLi7E"),
-                          ("committed", "chol_kernelIfE"),
+                          ("committed", "chol_panel_kernelIf"),
                           ("baseline", "chol_kernelIfE")):
             if name in libs:
                 for size, ops in sass_loops(BUILD / f"{name}.so", key,

@@ -10,6 +10,9 @@ the same against XLA); in f32 to 1e-4 relative to max |L| at condition
 1e3; L L^T reproduces X to 1e-12 (f64) and 1e-5 (f32) relative to |X|.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +20,10 @@ import torch
 
 from cvx_tpu.ops.pallas_chol import cholesky_batched as ref_cholesky
 from cvx_tpu.ops.pallas_chol import cholesky_batched_pallas
+from cvx_tpu_torch.ops import chol
 from cvx_tpu_torch.ops.chol import (cholesky_batched, cholesky_batched_cuda,
-                                    cholesky_batched_plain)
+                                    cholesky_batched_plain, held_max_n,
+                                    max_n)
 
 
 def _spd(B, n, cond, seed=0):
@@ -140,3 +145,37 @@ def test_wrapper_checks_and_counts():
         cholesky_batched_cuda(X[:, :, :7])
     with pytest.raises(ValueError, match=r"\(B, n, n\)"):
         cholesky_batched_plain(X[0])
+
+
+@pytest.mark.timeout(30)
+def test_wrapper_limits_mirror_the_kernel_source():
+    # the wrapper refuses what the C launcher refuses, and the plain
+    # version blocks as the kernel does: the constants of csrc/chol.cu
+    src = (Path(chol.__file__).parent / "csrc" / "chol.cu").read_text()
+    const = {m[1]: int(m[2]) for m in
+             re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert chol._BK == const["kBk"]
+    assert held_max_n(torch.float32) == const["kHeldMaxN"]
+    assert held_max_n(torch.float64) == const["kHeldMaxNF64"]
+    assert max_n(torch.float32) == const["kMaxN"] == 1760
+    assert max_n(torch.float64) == const["kMaxNF64"] == 880
+    assert held_max_n(torch.float32) < max_n(torch.float32)
+    assert held_max_n(torch.float64) < max_n(torch.float64)
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("n", [257, 300])
+def test_plain_on_the_panel_range_matches_reference(n):
+    # n > held_max_n: the CUDA kernel's panel path; 257 ends in a ragged
+    # column block of 1 column, 300 in one of 12.  f64 at condition 1e6
+    # against the reference's XLA route and LAPACK's factor (other
+    # orders), to 1e-10 relative as the module's docstring states
+    X = _spd(2, n, 1e6, seed=n)
+    L = cholesky_batched_plain(torch.from_numpy(X)).numpy()
+    L_xla = np.asarray(ref_cholesky(jnp.asarray(X), method="xla"))
+    L_np = np.linalg.cholesky(X)
+    for L_ref in (L_xla, L_np):
+        assert np.max(np.abs(L - L_ref)) <= 1e-10 * np.max(np.abs(L_ref))
+    assert np.array_equal(np.triu(L, 1), np.zeros_like(L))
+    recon = L @ L.transpose(0, 2, 1)
+    assert np.max(np.abs(recon - X)) <= 1e-12 * np.max(np.abs(X))

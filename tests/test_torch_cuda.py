@@ -33,7 +33,8 @@ import torch
 
 from cvx_tpu_torch.ops.chol import (cholesky_batched,
                                     cholesky_batched_cuda,
-                                    cholesky_batched_plain, held_max_n)
+                                    cholesky_batched_plain, held_max_n,
+                                    max_n)
 from cvx_tpu_torch.ops.kl_barrier import (_schedule, kl_barrier_fused,
                                           kl_barrier_fused_plain)
 from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
@@ -220,11 +221,14 @@ def test_k3_bench_case_reaches_every_line_search_path(dev):
 
 
 # chol.cu factors n <= held_max_n(dtype) with the matrix in registers and
-# larger n on its panel path: n either side of the limit in each type, and
-# at n = 100 a failed pivot in column 0, a zero pivot (row and column 50
-# zero) and a failed pivot in the last, ragged column block (96-99)
+# larger n on its panel path: n either side of the limit in each type; at
+# n = 100 a failed pivot in column 0, a zero pivot (row and column 50
+# zero) and a failed pivot in the last, ragged column block (96-99); on
+# the panel path ragged n (257, 500 in f32, 300 in f64), max_n(dtype) and
+# a failed pivot in a late column block (300 of 512)
 _F32_HELD, _F64_HELD = (held_max_n(torch.float32),
                         held_max_n(torch.float64))
+_F32_MAX, _F64_MAX = max_n(torch.float32), max_n(torch.float64)
 
 
 @pytest.mark.timeout(600)
@@ -236,7 +240,11 @@ _F32_HELD, _F64_HELD = (held_max_n(torch.float32),
     (_F64_HELD, torch.float64, "pivot 10"),
     (_F64_HELD + 1, torch.float64, "pivot 10"),
     (100, torch.float32, "pivot 0"), (100, torch.float32, "zero pivot 50"),
-    (100, torch.float32, "pivot 97")])
+    (100, torch.float32, "pivot 97"),
+    (257, torch.float32, "pivot 10"), (500, torch.float32, "pivot 10"),
+    (_F32_MAX, torch.float32, "pivot 10"),
+    (300, torch.float64, "pivot 10"), (_F64_MAX, torch.float64, "pivot 10"),
+    (512, torch.float32, "pivot 300")])
 def test_k4_matches_plain(dev, n, dtype, where):
     rng = np.random.default_rng(n)
     M = rng.standard_normal((7, n, n))
