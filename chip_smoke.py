@@ -134,7 +134,7 @@ def dual_cases(dev):
                 t(H)[None].expand(10000, -1, -1), t(U), None, None))
     # n = 100: every dual dim with a held path in kl_dual.cu (2 to 8, no
     # extra equality rows; dim 3 is the bench shape), the first without
-    # (9), and dim 4 with an equality row (streamed)
+    # (9), and dim 4 with an equality row (the group path)
     for k, m_eq, n in ((2, 0, 24), (7, 0, 24), (5, 2, 24), (15, 0, 24),
                        (13, 2, 24), (1, 0, 100), (3, 0, 100), (4, 0, 100),
                        (5, 0, 100), (6, 0, 100), (7, 0, 100), (8, 0, 100),
@@ -156,12 +156,36 @@ def dual_cases(dev):
     H, U = bench_family(37, 77, seed=2)
     out.append(("ragged B=37 n=77", t(H)[None].expand(37, -1, -1), t(U),
                 None, None))
-    # the last n a lane holds in registers and the first it streams, and
-    # large n
-    for n, B in ((128, 256), (129, 256), (1000, 64), (10000, 8)):
+    # the last n a lane holds in registers and the first on the group path,
+    # each n where the group path's G doubles (kl_dual.path_of) and one
+    # past it, and large n
+    for n, B in ((128, 256), (129, 256), (256, 16), (257, 16), (512, 16),
+                 (513, 16), (1000, 64), (1024, 16), (1025, 16), (2048, 8),
+                 (2049, 8), (10000, 8),
+                 # one warp an instance (B fills the card): a lane adds 8
+                 # terms a sum uncompensated, then 9 compensated
+                 (256, 1024), (257, 1024)):
         H, U = bench_family(B, n, seed=n)
         out.append((f"family of bench.py B={B} n={n}",
                     t(H)[None].expand(B, -1, -1), t(U), None, None))
+    # the group path at the wide dims: dim 16 and dim 12 with equality rows
+    # at n = 100, dim 9 past its G cap (8 warps from n = 1,025)
+    for k, m_eq, n, B in ((15, 0, 100, 256), (9, 2, 100, 256),
+                          (8, 0, 1025, 16)):
+        H, U, A, R = random_family(k, m_eq, n, B)
+        Ab = t(A)[None].expand(B, -1, -1) if m_eq else None
+        out.append((f"family k={k} mE={m_eq} n={n} (dim {k + 1 + m_eq})",
+                    t(H)[None].expand(B, -1, -1), t(U), Ab,
+                    t(R) if m_eq else None))
+    # the sick and dead-lane rules on the group path (n = 200, two warps)
+    I_A = np.zeros(200); I_A[:3] = 1.0
+    out.append(("anti-parallel jammed instance n=200",
+                t(np.stack([-I_A, I_A]))[None],
+                t([[-0.4444439978653988, 0.49597226141316375]]), None, None))
+    H, U = bench_family(4, 200, seed=1)
+    Hs = np.repeat(H[None], 4, axis=0); Hs[3] = 1e6
+    U[3] = 1e6
+    out.append(("dead lane (lane 3) n=200", t(Hs), t(U), None, None))
     # the scaling ladder's kl_batch at n = 10,000: with uncompensated lane
     # sums, lane 20 stopped at gap 1.4e-3 (kl_dual.cu, LaneSum)
     H, U = bench_family(100, 10000, seed=0)
@@ -1179,7 +1203,7 @@ def main() -> int:
                                               kl_barrier_fused_plain)
     from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                                            kl_dual_fused_cert_plain,
-                                           kl_dual_fused_plain)
+                                           kl_dual_fused_plain, path_of)
     kernels = (kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused,
                cholesky_batched_cuda)
 
@@ -1211,6 +1235,10 @@ def main() -> int:
     print("phase 3: kernels against their plain versions")
     k1_err = k2_err = 0.0
     for cname, Hs, U, A, R in dual_cases(dev):
+        B_c, k_c, n_c = Hs.shape
+        m_c = 0 if A is None else A.shape[1]
+        print(f"  {cname}: K1 / K2 path "
+              f"{path_of(k_c + 1 + m_c, k_c, m_c, n_c, B_c, torch.float32)}")
         got = kl_dual_fused(Hs, U, A, R)
         ref = kl_dual_fused_plain(Hs, U, A, R)
         torch.cuda.synchronize()
@@ -1229,6 +1257,21 @@ def main() -> int:
     U64 = torch.tensor(U, dtype=torch.float64, device=dev)
     compare_k1("f64 ragged B=37 n=77", kl_dual_fused(H64, U64),
                kl_dual_fused_plain(H64, U64), K1_F64_TOL, K1_F64_DZ)
+    # f64 on the group path: the ladder's batch (16 warps an instance) and
+    # dual dim 16 (one-warp groups); the ragged batch above keeps the warp
+    # loop (kl_dual.path_of)
+    H, U = bench_family(100, 10000, seed=0)
+    H16, U16, _, _ = random_family(15, 0, 100, 256)
+    for cname, Hn, Un in (("f64 ladder B=100 n=10000", H, U),
+                          ("f64 family k=15 n=100 (dim 16)", H16, U16)):
+        k_c, n_c = Hn.shape
+        print(f"  {cname}: K1 path "
+              f"{path_of(k_c + 1, k_c, 0, n_c, len(Un), torch.float64)}")
+        H64 = torch.tensor(Hn, dtype=torch.float64, device=dev)[None].expand(
+            len(Un), -1, -1)
+        U64 = torch.tensor(Un, dtype=torch.float64, device=dev)
+        compare_k1(cname, kl_dual_fused(H64, U64),
+                   kl_dual_fused_plain(H64, U64), K1_F64_TOL, K1_F64_DZ)
     pars = SolverParams(**PRODUCTION)
     H, U = bench_family(10000, 100, seed=0)
     prob = DistKL.create(100, H=H.astype(np.float32),
@@ -1325,6 +1368,55 @@ def main() -> int:
               f"auto (K2) at n = {n_big}, B = {B_big}: max|gap| {gmax:.3e}"
               f" <= {CERT_GAP:g}, residuals {max(imax, emax):.3e} <= "
               "tol_feas, nothing stalled")
+
+    # the group path (kl_dual.path_of): the same entry points on the
+    # ladder's 100 x n = 10,000 (16 warps an instance) and at dual dim 16
+    # (10,000 x n = 100, the random 15-row family), each with the counters
+    # set to 0 just before it and read just after
+    group = {}
+    Hg, Ug = bench_family(100, 10000, seed=0)
+    H16, U16, _, _ = random_family(15, 0, 100, 10000)
+    for label, Hn, Un in (("n10000", Hg, Ug), ("dim16", H16, U16)):
+        prob_g = DistKL.create(Hn.shape[1], H=torch.tensor(Hn, **f32),
+                               u=torch.zeros(Hn.shape[0], **f32))
+        Ugt = torch.tensor(Un, **f32)
+        Hgb = prob_g.H[None].expand(len(Un), -1, -1)
+        torch.cuda.synchronize()
+        zero_counts(*kernels)
+        sol_g = prob_g.solve_certified_batch(Ugt)                    # K2
+        sol_g1 = prob_g.solve_certified_batch(Ugt, fused_cert=False)  # K1
+        torch.cuda.synchronize()
+        launches = kernel_counts(*kernels)
+        print(f"  group path {label} ({len(Un)} x n={Hn.shape[1]}, dual "
+              f"dim {Hn.shape[0] + 1}): launches {launches}")
+        check(launches == {"kl_dual_fused": 1, "kl_dual_fused_cert": 1,
+                           "kl_barrier_fused": 0,
+                           "cholesky_batched_cuda": 0},
+              f"the group path {label} launched K2 once (auto) and K1 once "
+              "(fused_cert=False)")
+        main_launches[f"kl_dual_fused_group_{label}"] = launches[
+            "kl_dual_fused"]
+        main_launches[f"kl_dual_fused_cert_group_{label}"] = launches[
+            "kl_dual_fused_cert"]
+        for route, s in (("auto (K2)", sol_g), ("fused_cert=False (K1+f64)",
+                                                sol_g1)):
+            gmax = float(s.duality_gap.abs().max())
+            rmax = max(float(s.ineq_res.max()), float(s.eq_gap.max()))
+            check(tuple(s.x.shape) == tuple(Hgb.shape[::2])
+                  and bool(torch.isfinite(s.x).all()) and gmax <= CERT_GAP
+                  and rmax <= 1e-7 and int(s.stalled.sum()) == 0,
+                  f"group path {label}, {route}: x finite, max|gap| "
+                  f"{gmax:.3e} <= {CERT_GAP:g}, residuals {rmax:.3e} <= "
+                  "tol_feas, nothing stalled")
+        # the kernels against their plain versions on the path's inputs
+        # (after the counted run)
+        group[label] = dict(
+            Hb=Hgb, U=Ugt, dim=Hn.shape[0] + 1,
+            k1_err=compare_k1(f"group path {label}", kl_dual_fused(Hgb, Ugt),
+                              kl_dual_fused_plain(Hgb, Ugt), K1_TOL, K1_DZ),
+            k2_err=compare_k2(f"group path {label}",
+                              kl_dual_fused_cert(Hgb, Ugt),
+                              kl_dual_fused_cert_plain(Hgb, Ugt)))
 
     # the primal path: a model made from numpy data with no device lands
     # on the card
@@ -1470,17 +1562,31 @@ def main() -> int:
                           {"plain": 3, "kernel": 20}, order)
     print(f"  kl_dual_fused f64: kernel {runs['kernel']} ms, plain "
           f"{runs['plain']} ms  [{smi}]")
-    # one warp per instance at large n (where a lane streams its rows)
-    for B_big, n_big in ((1000, 1000), (100, 10000)):
-        Hn, Un = bench_family(B_big, n_big, seed=0)
-        Hnb = torch.tensor(Hn, **f32)[None].expand(B_big, -1, -1)
-        Unt = torch.tensor(Un, **f32)
-        t1 = [time_ms(lambda: kl_dual_fused(Hnb, Unt), 20) for _ in range(2)]
-        t2 = [time_ms(lambda: kl_dual_fused_cert(Hnb, Unt), 20)
-              for _ in range(2)]
-        print(json.dumps({"shape": f"{B_big} x n={n_big}", "dim": 3,
-                          "kl_dual_fused_ms": t1,
-                          "kl_dual_fused_cert_ms": t2, "card": smi}))
+    # the group path at phase 4's shapes: kernel and plain in turns, and
+    # each bound from these inputs
+    for label, gd in group.items():
+        Hgb, Ugt, dim = gd["Hb"], gd["U"], gd["dim"]
+        B_g, k_g, n_g = Hgb.shape
+        for kname, kern, plain, err in (
+                ("kl_dual_fused", kl_dual_fused, kl_dual_fused_plain,
+                 gd["k1_err"]),
+                ("kl_dual_fused_cert", kl_dual_fused_cert,
+                 kl_dual_fused_cert_plain, gd["k2_err"])):
+            best, runs = in_turns({"plain": lambda: plain(Hgb, Ugt),
+                                   "kernel": lambda: kern(Hgb, Ugt)},
+                                  {"plain": 2, "kernel": 10}, order)
+            out = kern(Hgb, Ugt)
+            ops = dict(ops32=B_g * n_g * k1_ops_per_coord(dim, 16))
+            if kname == "kl_dual_fused_cert":
+                ops["ops64"] = B_g * n_g * k2_ops64_per_coord(dim, k_g, 0)
+            key = f"{kname}_group_{label}"
+            record[key] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                               library_ms=None, err=err,
+                               bound=bound(bytes_in(Hgb, Ugt)
+                                           + bytes_out(*out), **ops))
+            print(f"  {key} {B_g} x n={n_g} dim {dim}: kernel "
+                  f"{runs['kernel']} ms, plain {runs['plain']} ms, bound "
+                  f"{record[key]['bound'][0]:.5f} ms  [{smi}]")
 
     kargs = primal_args(H, U, X0, dev)
     kw = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
@@ -1576,6 +1682,8 @@ def main() -> int:
     for rec in parallel_rows:       # measured in phase 4d, the group up
         print(json.dumps(rec))
 
+    # the group path's entries (kl_dual_group_kernel and
+    # kl_dual_cert_group_kernel) name their shape after the wrapper
     srcs = {"kl_dual_fused": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_dual_fused_cert": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_barrier_fused": "cvx_tpu_torch/ops/csrc/kl_barrier.cu",
@@ -1590,6 +1698,11 @@ def main() -> int:
     errs = {"kl_dual_fused": k1_err, "kl_dual_fused_cert": k2_err,
             "kl_barrier_fused": k3_err, "cholesky_batched_cuda": k4_err,
             "cholesky_batched_cuda_panel": k4p_err}
+    for key, rec in record.items():
+        if "_group_" in key:
+            base = key.split("_group_")[0]
+            srcs[key], replaces[key] = srcs[base], replaces[base]
+            errs[key] = rec["err"]
     line = {"kernels": []}
     for kname, rec in record.items():
         bms, by = rec["bound"]

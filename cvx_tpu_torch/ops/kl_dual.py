@@ -35,11 +35,15 @@ Layout: ``Hs`` (B, k, n), ``u`` (B, k), ``A`` (B, mE, n), ``r`` (B, mE),
 The kernels take any batch and row stride for ``Hs``/``A`` (a stride-0
 ``expand`` of one shared matrix is read in place) and any strides for
 ``u``/``r``; the lane axis n must be contiguous.  The C launchers pick the
-kernel's path by shape: f32 rows with dual dim <= 8, mE = 0 and n <= 128
-are held in registers through the solve, every other shape is streamed
-from L2 in each pass.  A streamed f32 lane adds n/32 terms a sum, and
-compensates (Kahan) the sums of the value and the gradient: uncompensated,
-their rounding gave the dual value a false minimum at n = 10,000.
+kernel's path by shape (``path_of`` mirrors the rule): f32 rows with dual
+dim <= 8, mE = 0 and n <= 128 are held in registers by one warp per
+instance; every other shape takes the group path, one instance per G
+warps (G grows with n while the card has room), its sums reduced once a
+pass and its small system solved once by one warp, except K1 in f64 at
+dual dims <= 4 where G would be 1, which keeps one warp an instance.  An
+f32 lane that adds more than 8 terms a sum compensates (Kahan) the sums
+of the value and the gradient: uncompensated, a lane's rounding over
+hundreds of terms gave the dual value a false minimum at n = 10,000.
 """
 
 from __future__ import annotations
@@ -54,6 +58,43 @@ from . import _build
 _FUSED_MAX_DIM = 16
 # most line-search halvings the kernels hold accumulators for
 _MAX_LS = 8
+# the C launchers' dispatch (csrc/kl_dual.cu's constants of the same
+# names): the held path's coordinates a lane holds and widest dual dim; the
+# group path's coordinates a thread takes before G doubles, the warps that
+# fill the card, G's cap at dual dims <= _GROUP_WIDE_DIM and above, and the
+# warps a block fills with one-warp groups
+_HELD_NC = 4                  # kHeldNC
+_HELD_MAX_DIM = 8             # kHeldMaxDim
+_GROUP_NC = 4                 # kGroupNC
+_GROUP_FILL_WARPS = 1024      # kGroupFillWarps
+_GROUP_MAX_WARPS = 16         # kGroupMaxWarps
+_GROUP_WIDE_DIM = 4           # kGroupWideDim
+_GROUP_WIDE_MAX_WARPS = 8     # kGroupWideMaxWarps
+_GROUP_BLOCK_WARPS = 4        # kGroupBlockWarps
+_WARP_LOOP_MAX_DIM_F64 = 4    # kWarpLoopMaxDimF64
+
+
+def path_of(dim, k, m_eq, n, B, dtype):
+    """The path ``csrc/kl_dual.cu``'s launchers take for B instances of K1
+    in ``dtype`` (K2: ``torch.float32``) at dual dim ``dim`` = k + 1 + m_eq
+    and n coordinates: ``"held"`` (f32, dim <= 8, no extra equality rows,
+    n <= 128; one warp an instance, the rows in registers), ``("group",
+    G)``, one instance per G warps (G doubles from 1 while a thread would
+    take more than ``_GROUP_NC`` coordinates and B G warps do not fill the
+    card, up to its cap), or ``"warp loop"``: K1 in f64 at dual dims <= 4
+    where G would be 1 keeps one warp an instance with the rows re-read
+    each pass."""
+    if (dtype == torch.float32 and dim <= _HELD_MAX_DIM and m_eq == 0
+            and k == dim - 1 and n <= 32 * _HELD_NC):
+        return "held"
+    cap = (_GROUP_MAX_WARPS if dim <= _GROUP_WIDE_DIM
+           else _GROUP_WIDE_MAX_WARPS)
+    G = 1
+    while G < cap and 32 * G * _GROUP_NC < n and B * G < _GROUP_FILL_WARPS:
+        G *= 2
+    if dtype == torch.float64 and dim <= _WARP_LOOP_MAX_DIM_F64 and G == 1:
+        return "warp loop"
+    return ("group", G)
 
 
 # --------------------------------------------------------------- plain K1
@@ -590,8 +631,8 @@ def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
     ``kl_dual_fused_plain`` does.
 
     CPU tensors run the plain version.  CUDA tensors (f32 or f64, all of
-    one dtype) run the CUDA kernel, one warp per instance, on the current
-    stream; anything it does not take raises.  ``kl_dual_fused.launches``
+    one dtype) run the CUDA kernel on the current stream (``path_of`` says
+    which path); anything it does not take raises.  ``kl_dual_fused.launches``
     counts kernel launches.
     """
     A, r = _check_args("kl_dual_fused", Hs, u, A, r, log_prior,

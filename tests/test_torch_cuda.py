@@ -39,7 +39,7 @@ from cvx_tpu_torch.ops.kl_barrier import (_schedule, kl_barrier_fused,
                                           kl_barrier_fused_plain)
 from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                                        kl_dual_fused_cert_plain,
-                                       kl_dual_fused_plain)
+                                       kl_dual_fused_plain, path_of)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,22 +72,32 @@ def _bench_family(n, B):
 
 
 # kl_dual.cu holds a lane's rows in registers for f32, dual dim <= 8, no
-# extra equality rows and n <= 128, and streams them otherwise: shapes
-# either side of each threshold, and large n
+# extra equality rows and n <= 128, and takes the group path (G warps an
+# instance, kl_dual.path_of) otherwise: shapes either side of each
+# threshold, each n where G doubles and one past it, and large n
 @pytest.mark.timeout(600)
 @pytest.mark.parametrize("k,m_eq,n,B,dtype", [
     (2, 0, 24, 64, torch.float32),
     (5, 2, 24, 64, torch.float32),
     (13, 2, 24, 64, torch.float64),
-    (2, 0, 100, 64, torch.float64),     # f64 is streamed
-    (2, 1, 100, 64, torch.float32),     # an equality row: streamed
+    (2, 0, 100, 64, torch.float64),     # f64 takes the group path
+    (2, 1, 100, 64, torch.float32),     # an equality row: group path
     (3, 0, 100, 64, torch.float32),     # dim 4
     (7, 0, 100, 64, torch.float32),     # dim 8, the widest held
-    (8, 0, 100, 64, torch.float32),     # dim 9, the first streamed
+    (8, 0, 100, 64, torch.float32),     # dim 9, the first on the group path
+    (15, 0, 100, 64, torch.float32),    # dim 16
+    (9, 2, 100, 64, torch.float32),     # dim 12 with equality rows
     (2, 0, 128, 64, torch.float32),     # the last n held
-    (2, 0, 129, 64, torch.float32),     # the first n streamed
+    (2, 0, 129, 64, torch.float32),     # the first n on the group path
+    (2, 0, 256, 16, torch.float32),     # G = 2
+    (2, 0, 257, 16, torch.float32),     # G = 4
+    (2, 0, 512, 16, torch.float32),
+    (2, 0, 513, 16, torch.float32),     # G = 8
     (2, 0, 1000, 64, torch.float32),
-    (2, 0, 10000, 8, torch.float32)])
+    (2, 0, 1024, 16, torch.float32),
+    (2, 0, 1025, 16, torch.float32),    # G = 16, the cap at dim 3
+    (2, 0, 10000, 8, torch.float32),
+    (2, 0, 10000, 100, torch.float32)])  # the ladder's batch
 def test_kernels_match_plain(dev, k, m_eq, n, B, dtype):
     # the random family up to n = 100, bench.py's (k = 2) beyond
     H, U, A, R = (_family(k, m_eq, n, B) if n <= 100
@@ -116,6 +126,43 @@ def test_kernels_match_plain(dev, k, m_eq, n, B, dtype):
         assert float(((zc - zq) / (1.0 + zq.abs()))[ok].abs().max()) <= 1e-9
         assert float((ic - iq)[ok].abs().max()) <= 1e-12
         assert float((ec - eq)[ok].abs().max()) <= 1e-12
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("case", ["jammed", "dead"])
+def test_group_path_sick_and_dead_lanes(dev, case):
+    # n = 200 takes the group path (two warps an instance): an exactly
+    # anti-parallel pair of rows whose lams are both free makes the small
+    # system sick (Jacobi direction), and lane 3's B'z0 ~ 2000 underflows
+    # every exp (sum(y) = 0, gap +inf)
+    n = 200
+    I_A = np.zeros(n); I_A[:3] = 1.0
+    if case == "jammed":
+        H = np.stack([-I_A, I_A])[None]
+        U = np.array([[-0.4444439978653988, 0.49597226141316375]])
+    else:
+        H, U, _, _ = _bench_family(n, 4)
+        H = np.repeat(H[None], 4, axis=0); H[3] = 1e6
+        U[3] = 1e6
+    Hs = torch.tensor(H, dtype=torch.float32, device=dev)
+    Ut = torch.tensor(U, dtype=torch.float32, device=dev)
+    assert path_of(3, 2, 0, n, Hs.shape[0], torch.float32) == ("group", 2)
+    x, g, z = kl_dual_fused(Hs, Ut)
+    xp, gp, zp = kl_dual_fused_plain(Hs, Ut)
+    assert torch.equal(torch.isinf(g), torch.isinf(gp))
+    assert bool(torch.isinf(gp).any()) == (case == "dead")
+    live = torch.isfinite(gp) & (gp.abs() <= 1e-5)
+    assert bool(live.any())
+    assert float((x - xp)[live].abs().max()) <= 1e-5
+    assert float(((z - zp) / (1.0 + zp.abs()))[live].abs().max()) <= 1e-4
+    xc, zc, gc, ic, ec = kl_dual_fused_cert(Hs, Ut)
+    xq, zq, gq, iq, eq = kl_dual_fused_cert_plain(Hs, Ut)
+    assert torch.equal(torch.isinf(gc), torch.isinf(gq))
+    ok = gq.abs() <= 1e-8
+    assert bool(ok.any())
+    assert float((xc - xq)[ok].abs().max()) <= 1e-11
+    assert float((gc - gq)[ok].abs().max()) <= 1e-10
+    assert float(((zc - zq) / (1.0 + zq.abs()))[ok].abs().max()) <= 1e-9
 
 
 @pytest.mark.timeout(600)

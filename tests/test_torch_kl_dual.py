@@ -9,6 +9,9 @@ line-search ties at the value's resolution may resolve differently under
 another summation order, moving x by ~1e-6).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +19,8 @@ import torch
 
 from cvx_tpu.ops.pallas_kl_dual import kl_dual_fused as ref_kl_dual_fused
 from cvx_tpu_torch.ops import kl_dual
-from cvx_tpu_torch.ops.kl_dual import kl_dual_fused, kl_dual_fused_plain
+from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_plain,
+                                       path_of)
 
 F32_TOL = 1e-5
 F64_TOL = 1e-9
@@ -241,3 +245,67 @@ class TestK1Wrapper:
         with pytest.raises(ValueError, match="CPU tensors or f32/f64 CUDA"):
             kl_dual_fused(H.to("meta"), U.to("meta"))
 
+
+
+@pytest.mark.timeout(30)
+def test_path_of_mirrors_the_kernel_source():
+    # path_of is the C launchers' dispatch: its constants are
+    # csrc/kl_dual.cu's, its rule the source's held_shape, group_max_warps
+    # and group_warps
+    src = (Path(kl_dual.__file__).parent / "csrc" / "kl_dual.cu").read_text()
+    const = {m[1]: int(m[2]) for m in
+             re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert kl_dual._MAX_LS == const["kMaxLs"]
+    assert kl_dual._HELD_NC == const["kHeldNC"]
+    assert kl_dual._HELD_MAX_DIM == const["kHeldMaxDim"]
+    assert kl_dual._GROUP_NC == const["kGroupNC"]
+    assert kl_dual._GROUP_FILL_WARPS == const["kGroupFillWarps"]
+    assert kl_dual._GROUP_MAX_WARPS == const["kGroupMaxWarps"]
+    assert kl_dual._GROUP_WIDE_DIM == const["kGroupWideDim"]
+    assert kl_dual._GROUP_WIDE_MAX_WARPS == const["kGroupWideMaxWarps"]
+    assert kl_dual._GROUP_BLOCK_WARPS == const["kGroupBlockWarps"]
+    assert kl_dual._WARP_LOOP_MAX_DIM_F64 == const["kWarpLoopMaxDimF64"]
+    flat = " ".join(src.replace("\\\n", " ").split())  # macros joined
+    for rule in ("return k == dim - 1 && n <= 32 * kHeldNC;",
+                 "return dim <= kGroupWideDim ? kGroupMaxWarps : "
+                 "kGroupWideMaxWarps;",
+                 "while (G < cap && 32 * G * kGroupNC < n && (long long)B * "
+                 "G < kGroupFillWarps) G *= 2;",
+                 "const int G = group_warps(dim, n, B), per = "
+                 "group_per_block(G);",
+                 "return G >= kGroupBlockWarps ? 1 : kGroupBlockWarps / G;",
+                 "if constexpr (!held_type && D <= kWarpLoopMaxDimF64) { "
+                 "if (G == 1) { kl_dual_kernel<D, 0, T>"):
+        assert rule in flat, rule
+    f32, f64 = torch.float32, torch.float64
+    # held: f32, dual dim <= 8, no equality rows, n <= 128
+    assert path_of(3, 2, 0, 100, 10000, f32) == "held"
+    assert path_of(8, 7, 0, 128, 1, f32) == "held"
+    assert path_of(3, 2, 0, 100, 10000, f64) == "warp loop"
+    assert path_of(5, 4, 0, 100, 10000, f64) == ("group", 1)
+    assert path_of(4, 2, 1, 100, 10000, f32) == ("group", 1)
+    assert path_of(9, 8, 0, 100, 10000, f32) == ("group", 1)
+    assert path_of(16, 15, 0, 24, 1, f32) == ("group", 1)
+    # G doubles past each 128 G coordinates, up to its cap, while B G
+    # warps do not fill the card
+    for n, G in ((129, 2), (256, 2), (257, 4), (512, 4), (513, 8),
+                 (1024, 8), (1025, 16), (10000, 16)):
+        assert path_of(3, 2, 0, n, 8, f32) == ("group", G)
+        assert path_of(3, 2, 0, n, 8, f64) == ("group", G)
+        assert path_of(3, 2, 0, n, 4096, f64) == "warp loop"
+        assert path_of(12, 9, 2, n, 8, f32) == ("group", min(G, 8))
+    assert path_of(3, 2, 0, 10000, 100, f32) == ("group", 16)
+    assert path_of(3, 2, 0, 1000, 1000, f32) == ("group", 2)
+    assert path_of(3, 2, 0, 200, 10000, f32) == ("group", 1)
+    # a block of one instance's G warps, or of kGroupBlockWarps one-warp
+    # groups, stays within the kernel's launch bound
+    for dim in range(2, 17):
+        for dtype in (f32, f64):
+            cap = 16 if dim <= 4 else 8
+            for n in (1, 100, 129, 1000, 10 ** 6):
+                path = path_of(dim, dim - 2, 1, n, 1, dtype)
+                if path == "warp loop":
+                    continue
+                _, G = path
+                per = 1 if G >= 4 else 4 // G
+                assert G & (G - 1) == 0 and G * per <= max(cap, 4)
