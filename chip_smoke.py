@@ -8,7 +8,8 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
 * the batched certified KL dual solve (``DistKL.create`` ->
   ``solve_certified_batch`` / ``solve``; kernels K1 and K2);
 * the batched primal KL solve (``solve_jittable_batch`` /
-  ``solve_jittable`` with ``method="fused"``; kernel K3);
+  ``solve_jittable`` with ``method="fused"``; kernel K3), also on its
+  group path (n > 256) at 1,000 x n = 1,000 and 100 x n = 10,000;
 * the batched Cholesky (``ops.chol.cholesky_batched(method="cuda")`` on
   4096 matrices of n = 100; kernel K4);
 * the generic interior-point core in f64 (phase 4b): ``solve()`` (the
@@ -231,6 +232,28 @@ def primal_cases(dev):
     X0 = feasible_points(U, 100); X0[2, 40] = 0.0
     out.append(("x0 on a bound (lane 2)", torch.float32,
                 primal_args(H, U, X0, dev), {}))
+    # the group path (n > 256; kl_barrier.path_of): each n in f32 and f64,
+    # ragged batches, x, log x and dx in registers, shared memory and
+    # global memory (f64 past a block's shared memory), one-warp groups
+    for B, n, k, dtype in ((37, 257, 2, torch.float32),
+                           (37, 257, 1, torch.float64),
+                           (16, 300, 2, torch.float32),
+                           (16, 300, 1, torch.float64),
+                           (13, 1000, 1, torch.float32),
+                           (1000, 1000, 2, torch.float32),
+                           (1000, 1000, 2, torch.float64),
+                           (10000, 300, 2, torch.float32),
+                           (100, 10000, 2, torch.float32),
+                           (100, 10000, 1, torch.float64),
+                           (4, 30000, 2, torch.float64)):
+        H, U = bench_family(B, n, seed=n + k)
+        out.append((f"group B={B} n={n} k={k} {str(dtype)[6:]}", dtype,
+                    primal_args(H[:k], U[:, :k], feasible_points(U, n), dev,
+                                dtype), {}))
+    H, U = bench_family(4, 300, seed=3)
+    X0 = feasible_points(U, 300); X0[2, 40] = 0.0
+    out.append(("x0 on a bound (lane 2), group n=300", torch.float32,
+                primal_args(H, U, X0, dev), {}))
     return out
 
 
@@ -324,10 +347,11 @@ def compare_k3(name, dtype, args, ls, kern, plain, prob=None, pars=None):
     tol = K3_TOL if dtype == torch.float32 else K3_F64_TOL
     if name.startswith("bench") and not ls:
         tol = 0.0      # the bench family with the default search: same bits
-    from cvx_tpu_torch.ops.kl_barrier import fused_n_outer
-    steps = fused_n_outer(args[0].shape[1] + args[0].shape[2],
-                          mu=kw["mu"]) * kw["n_inner"]
-    print(f"  K3 {name}: max|dx| {dx:.3e}; line-search candidates per step "
+    from cvx_tpu_torch.ops.kl_barrier import fused_n_outer, path_of
+    B_c, k_c, n_c = args[0].shape
+    steps = fused_n_outer(k_c + n_c, mu=kw["mu"]) * kw["n_inner"]
+    print(f"  K3 {name} (path {path_of(n_c, B_c, dtype)}"
+          f"): max|dx| {dx:.3e}; line-search candidates per step "
           f"{float(cand.double().mean()) / steps:.4f}")
     check(dx <= tol, f"K3 {name}: max|dx| <= {tol:g}")
     if prob is not None:
@@ -583,6 +607,69 @@ def generic_core(dev, kernels, H, U, x_cert):
             ("generic phase-I, feasibility_batch",
              lambda: screen.feasibility_batch(Umt),
              lambda: int(report["rep"].iters.max()), wall * 1e3))
+
+
+def primal_group_routes(dev, kernels, pars, main_launches,
+                        shapes=(("n1000", 1000, 1000), ("n10000", 100, 10000)),
+                        sync=torch.cuda.synchronize):
+    """The primal route ``solve_jittable_batch(method="fused")`` on K3's
+    group path (n > 256; ``kl_barrier.path_of``): bench.py's family, numpy
+    seed 0, f32, bench.py's schedule, at each (label, B, n) of ``shapes``,
+    with the counters set to 0 just before it and read just after (into
+    ``main_launches``); then K3 against its plain version on the route's
+    inputs, and both x's host f64 certificates, the kernel's no worse than
+    the plain x's (to K3_DGAP).  Returns {label: phase 5's inputs}."""
+    from cvx_tpu_torch import DistKL
+    from cvx_tpu_torch.diagnostics import kl_gap_certificate_np
+    from cvx_tpu_torch.ops.kl_barrier import (fused_n_outer,
+                                              kl_barrier_fused_plain, path_of)
+    f32 = dict(dtype=torch.float32, device=dev)
+    primal_group = {}
+    kw3 = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
+    for label, B_r, n_r in shapes:
+        Hr, Ur = bench_family(B_r, n_r, seed=0)
+        X0r = feasible_points(Ur, n_r).astype(np.float32)
+        prob_r = DistKL.create(n_r, H=Hr.astype(np.float32),
+                               u=np.zeros(2, np.float32))
+        Urt, X0rt = torch.tensor(Ur, **f32), torch.tensor(X0r, **f32)
+        sync()
+        zero_counts(*kernels)
+        rsol = prob_r.solve_jittable_batch(Urt, X0rt, method="fused",
+                                           pars=pars)
+        sync()
+        launches = kernel_counts(*kernels)
+        steps = fused_n_outer(2 + n_r, mu=PRODUCTION["mu"]) * kw3["n_inner"]
+        print(f"  primal route {label} ({B_r} x n={n_r}, K3 path "
+              f"{path_of(n_r, B_r, torch.float32)}): launches {launches}")
+        check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
+                           "kl_barrier_fused": 1, "cholesky_batched_cuda": 0},
+              f"the primal route {label} launched K3 once and nothing else")
+        main_launches[f"kl_barrier_fused_group_{label}"] = launches[
+            "kl_barrier_fused"]
+        nst = int(rsol.stalled.sum())
+        check(tuple(rsol.x.shape) == (B_r, n_r)
+              and bool(torch.isfinite(rsol.x).all())
+              and bool((rsol.iters == steps).all()) and nst == 0,
+              f"primal route {label}: x finite, shape ({B_r}, {n_r}), "
+              f"{steps} Newton steps each, stalled {nst}")
+        kargs_r = primal_args(Hr, Ur, X0r, dev)
+        xp_r = kl_barrier_fused_plain(*kargs_r, **kw3)
+        sync()
+        err = float((rsol.x - xp_r).nan_to_num().abs().max())
+        check(torch.equal(torch.isnan(rsol.x), torch.isnan(xp_r))
+              and err <= K3_TOL,
+              f"primal route {label}: K3's x against the plain version's "
+              f"on the same inputs, max|dx| {err:.3e} <= {K3_TOL:g}")
+        cert_k = kl_gap_certificate_np(rsol.x.cpu().numpy(), Hr, Ur)
+        cert_p = kl_gap_certificate_np(xp_r.cpu().numpy(), Hr, Ur)
+        print(f"  primal route {label}: kl_gap_certificate_np max kernel "
+              f"{cert_k.max():.3e}, plain {cert_p.max():.3e}; median "
+              f"{np.median(cert_k):.3e}, {np.median(cert_p):.3e}")
+        check(float(cert_k.max()) <= float(cert_p.max()) + K3_DGAP,
+              f"primal route {label}: host f64 certificate of K3's x no "
+              f"worse than the plain x's (to {K3_DGAP:g})")
+        primal_group[label] = dict(args=kargs_r, err=err, steps=steps)
+    return primal_group
 
 
 def screen_family(B, n, seed=7):
@@ -1474,6 +1561,9 @@ def main() -> int:
           f"solve_jittable(method='fused') on instance 0: gap "
           f"{float(pone.duality_gap):.3e}, x equal to the batch's")
 
+    # the primal route on K3's group path (n > 256)
+    primal_group = primal_group_routes(dev, kernels, pars, main_launches)
+
     # the batched Cholesky path
     Xc = spd_batch(4096, 100, torch.float32, dev, seed=7)
     torch.cuda.synchronize()
@@ -1608,6 +1698,28 @@ def main() -> int:
           f"{runs['kernel']} ms, plain {runs['plain']} ms; line-search "
           f"candidates {n_cand} ({n_cand / (10000 * 21):.4f} per step), "
           f"bound {record['kl_barrier_fused']['bound'][0]:.5f} ms  [{smi}]")
+    # K3's group path at phase 4's route shapes
+    for label, pg in primal_group.items():
+        kargs_r, steps = pg["args"], pg["steps"]
+        B_r, k_r, n_r = kargs_r[0].shape
+        best, runs = in_turns(
+            {"plain": lambda: kl_barrier_fused_plain(*kargs_r, **kw),
+             "kernel": lambda: kl_barrier_fused(*kargs_r, **kw)},
+            {"plain": 2, "kernel": 10}, order)
+        xk = kl_barrier_fused(*kargs_r, **kw)
+        _, cand = kl_barrier_fused_plain(*kargs_r, count_candidates=True,
+                                         **kw)
+        n_cand = int(cand.sum())
+        key = f"kl_barrier_fused_group_{label}"
+        record[key] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                           library_ms=None, err=pg["err"],
+                           bound=bound(bytes_in(*kargs_r) + bytes_out(xk),
+                                       ops32=k3_ops(k_r, n_r, B_r, steps,
+                                                    n_cand)))
+        print(f"  {key} {B_r} x n={n_r}, {steps} steps: kernel "
+              f"{runs['kernel']} ms, plain {runs['plain']} ms; line-search "
+              f"candidates {n_cand / (B_r * steps):.4f} per step, bound "
+              f"{record[key]['bound'][0]:.5f} ms  [{smi}]")
 
     # the held path's shapes and the panel path's (n > 192) in each type
     chol_rows = []
@@ -1682,8 +1794,9 @@ def main() -> int:
     for rec in parallel_rows:       # measured in phase 4d, the group up
         print(json.dumps(rec))
 
-    # the group path's entries (kl_dual_group_kernel and
-    # kl_dual_cert_group_kernel) name their shape after the wrapper
+    # the group paths' entries (kl_dual_group_kernel,
+    # kl_dual_cert_group_kernel and kl_barrier_group_kernel) name their
+    # shape after the wrapper
     srcs = {"kl_dual_fused": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_dual_fused_cert": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_barrier_fused": "cvx_tpu_torch/ops/csrc/kl_barrier.cu",

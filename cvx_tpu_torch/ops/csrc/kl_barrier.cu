@@ -7,40 +7,62 @@
 // Woodbury/Schur solve, the closed-form step bound and the no-step guard.
 //
 // What bounds it on this card.  Per instance and Newton step the work is
-// five passes over the n coordinates, each ending in warp reductions that
-// the next pass needs: the margins and f0; the Woodbury sums; the Schur
-// sums; q, H dx and the step bound; the line-search candidates (two sums
-// and one log each per coordinate).  At the bench shape (10k instances,
-// n = 100, 21 steps) x0 and x are 8 MB (2.4 us at 3.35 TB/s), and the
-// arithmetic is some 70 operations per coordinate and step plus 8 per
-// candidate, the candidates averaging under 3 per step (about 2 G
-// operations, 0.03 ms at the f32 peak): operations bound it, not bytes,
-// and in practice the latency of the dependent chain of passes and
-// reductions.
+// five passes over the n coordinates, each ending in reductions that the
+// next pass needs: the margins and f0; the Woodbury sums; the Schur sums;
+// q, H dx and the step bound; the line-search candidates (two sums and one
+// log each per coordinate).  At the bench shape (10k instances, n = 100,
+// 21 steps) x0 and x are 8 MB (2.4 us at 3.35 TB/s), and the arithmetic is
+// some 70 operations per coordinate and step plus 8 per candidate, the
+// candidates averaging under 3 per step (about 2 G operations, 0.03 ms at
+// the f32 peak): operations bound it, not bytes, and in practice the
+// latency of the dependent chain of passes and reductions.
 //
-// What the design does about it.  One warp per instance: every reduction
-// is a register butterfly (__shfl_xor_sync) with no shared memory and no
-// barrier, and every lane then holds the per-instance scalars, so no
-// broadcast is needed and every branch on them is warp-uniform.  Four
-// warps per block.  Each lane owns the coordinates i = lane + 32 c.  Up to
-// n = kRegMaxN their state (x, log x, g, 1/h, H^-1 g, H^-1 a, dx) stays in
-// registers, NC per lane; above it the same state lives in a per-instance
-// scratch row of global memory (L2), read and written only by the lane
-// that owns the coordinate.  The rows Hs and A are re-read from global
-// memory in each pass.  K (1 or 2 rows) and NC are template parameters,
-// so the small algebra and the coordinate loops unroll.
+// Two paths, chosen in the C launcher (launch_k3; ../kl_barrier.py's
+// path_of mirrors it).
+//
+// Register (kl_barrier_kernel, n <= kRegMaxN).  One warp per instance:
+// every reduction is a register butterfly (__shfl_xor_sync) with no shared
+// memory and no barrier, and every lane then holds the per-instance
+// scalars, so no broadcast is needed and every branch on them is
+// warp-uniform.  Four warps per block.  Each lane owns the coordinates i =
+// lane + 32 c, NC of them, and keeps their state (x, log x, g, 1/h, H^-1 g,
+// H^-1 a, dx) in registers.  The rows Hs and A are re-read from global
+// memory (L1 / L2) in each pass.
+//
+// Group (kl_barrier_group_kernel, n > kRegMaxN).  What bounded the old
+// one-warp loop there: one warp's serial walk over n / 32 coordinates, at
+// 100 x n = 10,000 on 25 of 132 SMs, each coordinate a round trip to six
+// rows in L2.  Design: one instance per group of G warps, G the least
+// power of two with 32 G kGroupNC >= n, or with B G >= kGroupFillWarps
+// (the card is full) and 32 G kGroupFullNC >= n, at most kGroupMaxWarps;
+// thread t of a group owns the coordinates i = t + 32 G c.  Between passes
+// a thread keeps x, log x, dx and pass 2's g and 1/h (H^-1 g and H^-1 a
+// are computed again where needed): in registers while it owns at most
+// kGroupNC coordinates, else in shared memory where a block's fit
+// (kGroupSmemBytes), else in a row of global memory that only the
+// instance's block touches.  A pass's sums are reduced by a butterfly in
+// each warp, then, for G > 1, through shared memory with one __syncthreads
+// (two buffers, alternating): lane w of every warp reads warp w's sums and
+// a second butterfly adds them, so every thread of the group holds the
+// same totals and every branch is uniform over the block; a group of G > 1
+// has its block to itself, so its line search may run as many candidates
+// as its own data needs.  An f32 thread that owns more than kGroupNC
+// coordinates adds them kGroupNC at a time and compensates the block sums
+// (Sums), so no sum runs more than kGroupNC rounded adds in a row.
 //
 // The line search does only the candidates the data needs.  The TPU
 // evaluated all n_ls of them as one tensor and kept the longest accepted;
 // here a step whose result is known is skipped (q < -eps fails, or no
 // candidate is positive), and the candidates, non-increasing whenever
 // beta^expo is (each warp reads them once, before its first step), are
-// tried kLsChunk at a time in order until one is accepted: that one is the
-// longest.  Its x is the next x by the same expression, so its logs and
-// its two sums are the next step's log x and f0 sums, and pass 1 takes no
-// log after a step (in registers only; the scratch path recomputes them).
-// Every decision is the same bits as evaluating all candidates: each
-// candidate's sums keep the per-lane order and the butterfly.
+// tried in order until one is accepted: that one is the longest.  Its x is
+// the next x by the same expression, so its logs and its two sums are the
+// next step's log x and f0 sums, and pass 1 takes no log after a step (the
+// register path keeps the candidate's logs in registers; the group path
+// writes them over log x, and takes the logs again in pass 1 after a step
+// that accepted no candidate or not the last one it evaluated).  Every
+// decision is the same bits as evaluating all candidates: each candidate's
+// sums keep the per-thread order and the reductions.
 //
 // Numerics follow the reference: IEEE log/div (no fast math, no flush to
 // zero), NaN-propagating min like jnp.minimum, and the same order of
@@ -48,15 +70,16 @@
 // the candidates' beta^expo and log n come from the wrapper as device
 // arrays, computed by the same PyTorch ops as the plain version, so no
 // value is read back to the host before the launch.  Sums over the
-// coordinates are reduced by a warp butterfly, which need not pair the
-// partial sums as the plain version's row sums do, so late Armijo decisions
-// at f32 resolution may differ from it (on the bench family they have not:
-// max |dx| 0); the kernel is held to the plain version by a tolerance.
+// coordinates are reduced in a tree, which need not pair the partial sums
+// as the plain version's row sums do, so late Armijo decisions at f32
+// resolution may differ from it (on the bench family at n = 100 they have
+// not: max |dx| 0); the kernel is held to the plain version by a tolerance.
 //
 // Interface: plain C, pointers and element strides; the lane axis of Hs,
 // A and x0 is contiguous, their batch strides are free (0 for a shared,
-// expanded matrix).  Each entry launches on the given stream and returns
-// cudaGetLastError().
+// expanded matrix).  scratch is (B, 2, n), read only when the group path
+// keeps its coordinates in global memory (path_of's "global").  Each entry
+// launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -65,13 +88,28 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;  // instances per block
+constexpr int kWarpsPerBlock = 4;  // register path: instances per block
 constexpr int kThreads = kWarpsPerBlock * 32;
 // line-search candidates per pass over the coordinates: 1 beat 2 and 4 at
 // the bench shape (fewer registers, and most searches stop at the first)
 constexpr int kLsChunk = 1;
 constexpr int kRegMaxN = 256;      // _REG_MAX_N in ../kl_barrier.py
-constexpr int kScratchRows = 6;    // log x, g, 1/h, H^-1 g, H^-1 a, dx
+// group path: G is the least power of two with 32 G kGroupNC >= n, or with
+// B G >= kGroupFillWarps (the card is full) and 32 G kGroupFullNC >= n, at
+// most kGroupMaxWarps; one-warp groups sit kGroupBlockWarps to a block, a
+// wider group has a block of its own.  A thread owns c = ceil(n / 32 G)
+// coordinates and keeps their x, log x, dx, g and 1/h in registers for c
+// <= kGroupNC, else in shared memory if the block's kGroupRows n values fit
+// in kGroupSmemBytes (the card's 227 KB less the reduction buffers), else
+// in global memory.  Mirrored by ../kl_barrier.py's _GROUP_* and path_of.
+constexpr int kGroupNC = 8;
+constexpr int kGroupFullNC = 16;
+constexpr int kGroupFillWarps = 4096;
+constexpr int kGroupMaxWarps = 16;
+constexpr int kGroupBlockWarps = 4;
+constexpr int kGroupRows = 5;      // x, log x, dx, g, 1/h
+constexpr int kRedMax = 8;         // most values a pass reduces
+constexpr int kGroupSmemBytes = 232448 - 2 * kGroupMaxWarps * kRedMax * 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Lim;
@@ -104,19 +142,7 @@ template <typename T> __device__ __forceinline__ T warp_min(T v) {
   return v;
 }
 
-// A lane's coordinates i = lane + 32 c of one per-coordinate vector: in
-// registers (NC > 0) or in a scratch row of global memory (NC == 0).
-template <typename T, int NC> struct Lanes {
-  T r[NC];
-  __device__ __forceinline__ void bind(T*) {}
-  __device__ __forceinline__ T& operator[](int c) { return r[c]; }
-};
-template <typename T> struct Lanes<T, 0> {
-  T* p;
-  __device__ __forceinline__ void bind(T* row) { p = row; }
-  __device__ __forceinline__ T& operator[](int c) { return p[32 * c]; }
-};
-
+// ------------------------------------------------------- register path
 template <typename T, int K, int NC>
 __global__ void __launch_bounds__(kThreads)
 kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
@@ -124,15 +150,14 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
                   const T* __restrict__ x0, long long sHb, long long sHk,
                   long long sub, long long suk, long long sAb, long long sbb,
                   long long sxb, const T* __restrict__ ts,
-                  const T* __restrict__ ls_ts, T* __restrict__ xout,
-                  T* __restrict__ scratch, int B, int n, int n_outer,
-                  int n_inner, int n_ls, const T* __restrict__ lognv_p,
-                  T delta, T alpha) {
+                  const T* __restrict__ ls_ts, T* __restrict__ xout, int B,
+                  int n, int n_outer, int n_inner, int n_ls,
+                  const T* __restrict__ lognv_p, T delta, T alpha) {
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (b >= B) return;
   // the same trip count on every lane; coordinates i >= n are skipped
-  const int nc = NC > 0 ? NC : (n + 31) / 32;
+  constexpr int nc = NC;
   const T* Hb = H + b * sHb;
   const T* a0 = A + b * sAb;
   T ub[K];
@@ -142,15 +167,7 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
   const T eps = Lim<T>::eps();
   const T lognv = *lognv_p;
 
-  Lanes<T, NC> x, lx, g, ih, hig, hia, dx;
-  x.bind(xout + (long long)b * n + lane);
-  T* srow = scratch + (long long)b * kScratchRows * n + lane;
-  lx.bind(srow);
-  g.bind(srow + n);
-  ih.bind(srow + 2 * n);
-  hig.bind(srow + 3 * n);
-  hia.bind(srow + 4 * n);
-  dx.bind(srow + 5 * n);
+  T x[NC], lx[NC], g[NC], ih[NC], hig[NC], hia[NC], dx[NC];
 #pragma unroll
   for (int c = 0; c < nc; ++c) {
     const int i = lane + 32 * c;
@@ -342,7 +359,7 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
       bool done = false;
       for (int l0 = 0; l0 < n_ls && !done; l0 += kLsChunk) {
         T ss[kLsChunk], a1[kLsChunk], a2[kLsChunk];
-        T lc[kLsChunk][NC > 0 ? NC : 1];   // their logs, in registers only
+        T lc[kLsChunk][NC];       // their logs
         bool okx[kLsChunk];
 #pragma unroll
         for (int l = 0; l < kLsChunk; ++l) {
@@ -360,7 +377,7 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
             const T xs = xi + ss[l] * di;
             okx[l] = okx[l] && xs > T(0);
             const T lxs = klog(xs > T(0) ? xs : T(1));
-            if constexpr (NC > 0) lc[l][c] = lxs;
+            lc[l][c] = lxs;
             a1[l] += xs * (lognv + lxs);
             a2[l] += lxs;
           }
@@ -381,15 +398,13 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
           if (!(ok && armijo && ss[l] > s_best)) continue;
           s_best = ss[l];
           done = first_wins;
-          if constexpr (NC > 0) {
-            if (done) {
+          if (done) {
 #pragma unroll
-              for (int c = 0; c < nc; ++c)
-                if (lane + 32 * c < n) lx[c] = lc[l][c];
-              sum_xl = s1;
-              sum_l = s2;
-              handed_over = true;
-            }
+            for (int c = 0; c < nc; ++c)
+              if (lane + 32 * c < n) lx[c] = lc[l][c];
+            sum_xl = s1;
+            sum_l = s2;
+            handed_over = true;
           }
         }
       }
@@ -412,26 +427,486 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
   }
 }
 
-template <typename T, int K>
-void launch_nc(int nc_needed, const T* H, const T* u, const T* A,
-               const T* bv, const T* x0, long long sHb, long long sHk,
-               long long sub, long long suk, long long sAb, long long sbb,
-               long long sxb, const T* ts, const T* ls_ts, T* x, T* scratch,
-               int B, int n, int n_outer, int n_inner, int n_ls,
-               const T* lognv, T delta, T alpha, cudaStream_t st) {
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-#define KL_K3_ARGS                                                         \
-  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, ts, ls_ts, x,        \
-      scratch, B, n, n_outer, n_inner, n_ls, lognv, delta, alpha
-  if (nc_needed <= 4)
-    kl_barrier_kernel<T, K, 4><<<blocks, kThreads, 0, st>>>(KL_K3_ARGS);
-  else if (n <= kRegMaxN)
-    kl_barrier_kernel<T, K, kRegMaxN / 32><<<blocks, kThreads, 0, st>>>(
-        KL_K3_ARGS);
-  else
-    kl_barrier_kernel<T, K, 0><<<blocks, kThreads, 0, st>>>(KL_K3_ARGS);
-#undef KL_K3_ARGS
+// ---------------------------------------------------------- group path
+// A thread's E running sums over its coordinates.  BLOCKED (an f32 thread
+// that owns more than kGroupNC coordinates) adds kGroupNC coordinates'
+// terms at a time into block sums, and those into compensated totals
+// (Kahan; --fmad=false and no fast math keep the compiler from folding it
+// away): no sum then runs more than kGroupNC rounded adds in a row, as
+// kl_dual.cu's group path bounds its lanes' chains, for one compensated
+// add per kGroupNC terms (compensating every term ran 10,000 x n = 300
+// 13 % slower on the H100).  start(c) comes first in the body of the loop
+// over a thread's coordinates c.
+template <typename T, int E, bool BLOCKED> struct Sums {
+  T b[E], s[E], k[E];
+  __device__ __forceinline__ Sums() {
+#pragma unroll
+    for (int e = 0; e < E; ++e) b[e] = s[e] = k[e] = T(0);
+  }
+  __device__ __forceinline__ void add(int e, T v) { b[e] += v; }
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const T y = b[e] - k[e];
+      const T t = s[e] + y;
+      k[e] = (t - s[e]) - y;
+      s[e] = t;
+      b[e] = T(0);
+    }
+  }
+  __device__ __forceinline__ void start(int c) {
+    if constexpr (BLOCKED) {
+      if (c > 0 && c % kGroupNC == 0) flush();
+    }
+  }
+  template <int N>
+  __device__ __forceinline__ void totals(T (&v)[N]) {
+    static_assert(N >= E, "totals");
+    if constexpr (BLOCKED) flush();
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = BLOCKED ? s[e] - k[e] : b[e];
+  }
+};
+
+// A thread's coordinates i = t + S c of one vector: in registers (NC > 0)
+// or at stride S in a row of shared or global memory (NC == 0).
+template <typename T, int NC> struct Coords {
+  T r[NC];
+  __device__ __forceinline__ void bind(T*, int) {}
+  __device__ __forceinline__ T& operator[](int c) { return r[c]; }
+};
+template <typename T> struct Coords<T, 0> {
+  T* p;
+  int s;
+  __device__ __forceinline__ void bind(T* row, int stride) {
+    p = row;
+    s = stride;
+  }
+  __device__ __forceinline__ T& operator[](int c) { return p[s * c]; }
+};
+
+// A thread's place in its group, and the block's reduction buffers
+template <typename T> struct Grp {
+  int lane, warp, G;
+  T* red;       // 2 buffers of kGroupMaxWarps x kRedMax
+  int par;
+};
+
+// Totals over the group of v[0, E) (sums) and v[E, E + M) (minimums), the
+// same bits in every thread: a butterfly in each warp, then for G > 1 each
+// warp's lane 0 writes its warp's values, one __syncthreads, and lane w of
+// every warp reads warp w's and a second butterfly combines them.  The
+// buffers alternate, so a warp that runs ahead into the next reduction
+// writes where no warp still reads.
+template <int E, int M, typename T>
+__device__ __forceinline__ void group_total(Grp<T>& g, T (&v)[E + M]) {
+  static_assert(E + M <= kRedMax, "kRedMax");
+#pragma unroll
+  for (int e = 0; e < E + M; ++e)
+    v[e] = e < E ? warp_sum(v[e]) : warp_min(v[e]);
+  if (g.G == 1) return;
+  T* r = g.red + g.par * (kGroupMaxWarps * kRedMax);
+  g.par ^= 1;
+  if (g.lane == 0) {
+#pragma unroll
+    for (int e = 0; e < E + M; ++e) r[g.warp * kRedMax + e] = v[e];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < E + M; ++e) {
+    const T w = g.lane < g.G ? r[g.lane * kRedMax + e]
+                             : (e < E ? T(0) : T(INFINITY));
+    v[e] = e < E ? warp_sum(w) : warp_min(w);
+  }
 }
+
+// Where a thread keeps its coordinates' state: in registers (NC > 0), in
+// dynamic shared memory, or x in xout and the others in scratch (B, 4, n);
+// a compile-time value, so that shared memory is addressed as such
+enum Where { kRegisters, kShared, kGlobal };
+
+template <typename T, int K, int NC, Where W>
+__global__ void __launch_bounds__(32 * kGroupMaxWarps)
+kl_barrier_group_kernel(const T* __restrict__ H, const T* __restrict__ u,
+                        const T* __restrict__ A, const T* __restrict__ bv,
+                        const T* __restrict__ x0, long long sHb,
+                        long long sHk, long long sub, long long suk,
+                        long long sAb, long long sbb, long long sxb,
+                        const T* __restrict__ ts,
+                        const T* __restrict__ ls_ts, T* __restrict__ xout,
+                        T* __restrict__ scratch, int B, int n, int n_outer,
+                        int n_inner, int n_ls,
+                        const T* __restrict__ lognv_p, T delta, T alpha,
+                        int G) {
+  constexpr bool BLK = sizeof(T) == sizeof(float) && NC == 0;
+  __shared__ T red[2 * kGroupMaxWarps * kRedMax];
+  extern __shared__ __align__(16) unsigned char kl_smem[];
+  const int wblk = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per = G == 1 ? kGroupBlockWarps : 1;
+  const int gi = wblk / G;
+  const int b = blockIdx.x * per + gi;
+  // only one-warp groups run past B, and they use no block barrier
+  if (b >= B) return;
+  Grp<T> g{lane, wblk % G, G, red, 0};
+  const int S = 32 * G;
+  const int t0 = 32 * g.warp + lane;
+  // the same trip count on every thread; coordinates i >= n are skipped
+  const int nc = NC > 0 ? NC : (n + S - 1) / S;
+  const T* Hb = H + b * sHb;
+  const T* a0 = A + b * sAb;
+  T ub[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) ub[j] = u[b * sub + j * suk];
+  const T bb = bv[b * sbb];
+  const T eps = Lim<T>::eps();
+  const T lognv = *lognv_p;
+
+  // x, log x, dx, and pass 2's g and 1/h for passes 3 and 4
+  Coords<T, NC> x, lx, dx, gk, ihk;
+  if constexpr (NC == 0) {
+    T* row;
+    if constexpr (W == kShared) {
+      row = reinterpret_cast<T*>(kl_smem) + (long long)gi * kGroupRows * n +
+            t0;
+      x.bind(row, S);
+      row += n;
+    } else {
+      row = scratch + (long long)b * (kGroupRows - 1) * n + t0;
+      x.bind(xout + (long long)b * n + t0, S);
+    }
+    lx.bind(row, S);
+    dx.bind(row + n, S);
+    gk.bind(row + 2 * n, S);
+    ihk.bind(row + 3 * n, S);
+  }
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {
+    const int i = t0 + S * c;
+    if (i < n) x[c] = x0[b * sxb + i];
+  }
+
+  // the candidates' factors, as the register path reads them
+  bool desc = true, neg = false;
+  for (int l = lane; l < n_ls; l += 32) {
+    const T f = ls_ts[l];
+    neg = neg || f < T(0);
+    if (l + 1 < n_ls) desc = desc && ls_ts[l + 1] <= f;
+  }
+  const bool ls_desc = __all_sync(kFull, desc);
+  const bool ls_neg = __any_sync(kFull, neg);
+
+  T sum_xl = T(0), sum_l = T(0);
+  bool have_logs = false;
+  const T one_l = T(1) + lognv;
+
+  for (int step = 0; step < n_outer * n_inner; ++step) {
+    const T t = ts[step / n_inner];
+
+    // pass 1: margins, a0 . x, and (after a step without hand-over) the
+    // logs and f0's sums
+    T v1[K + 3];      // rows . x, a0 . x, x . (log n + log x), sum log x
+    {
+      Sums<T, K + 3, BLK> ps;
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        ps.start(c);
+        const int i = t0 + S * c;
+        if (i >= n) continue;
+        const T xi = x[c];
+#pragma unroll
+        for (int j = 0; j < K; ++j) ps.add(j, Hb[j * sHk + i] * xi);
+        ps.add(K, a0[i] * xi);
+        if (!have_logs) {
+          const T l = klog(xi);
+          lx[c] = l;
+          ps.add(K + 1, xi * (lognv + l));
+          ps.add(K + 2, l);
+        }
+      }
+      ps.totals(v1);
+    }
+    group_total<K + 3, 0>(g, v1);
+    T ds[K], inv_ds[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      ds[j] = ub[j] - v1[j];
+      inv_ds[j] = T(1) / ds[j];
+    }
+    const T ax = v1[K];
+    if (!have_logs) {
+      sum_xl = v1[K + 1];
+      sum_l = v1[K + 2];
+      have_logs = true;
+    }
+    T f0 = t * sum_xl - sum_l;
+#pragma unroll
+    for (int j = 0; j < K; ++j) f0 = f0 - klog(ds[j]);
+
+    // pass 2: the Woodbury sums (rows/h . rows, . g and . a)
+    constexpr int E2 = K == 2 ? 7 : 3;
+    T v2[E2];         // m00, rows/h . g, rows/h . a, m11, m01
+    {
+      Sums<T, E2, BLK> ps;
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        ps.start(c);
+        const int i = t0 + S * c;
+        if (i >= n) continue;
+        const T xi = x[c];
+        T gi = t * (one_l + lx[c]) - T(1) / xi;
+        T row[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          row[j] = Hb[j * sHk + i];
+          gi = gi + row[j] * inv_ds[j];
+        }
+        const T hi = t / xi + T(1) / (xi * xi);
+        const T ihi = T(1) / hi;
+        gk[c] = gi;
+        ihk[c] = ihi;
+        const T ai = a0[i];
+        const T ud0 = row[0] * ihi;
+        ps.add(0, ud0 * row[0]);
+        ps.add(1, ud0 * gi);
+        ps.add(1 + K, ud0 * ai);
+        if constexpr (K == 2) {
+          const T ud1 = row[1] * ihi;
+          ps.add(5, ud1 * row[1]);
+          ps.add(6, ud0 * row[1]);
+          ps.add(2, ud1 * gi);
+          ps.add(4, ud1 * ai);
+        }
+      }
+      ps.totals(v2);
+    }
+    group_total<E2, 0>(g, v2);
+    T i00, i01 = T(0), i11 = T(0);
+    if constexpr (K == 2) {
+      T m00 = v2[0] + ds[0] * ds[0];
+      T m11 = v2[5] + ds[1] * ds[1];
+      const T m01 = v2[6];
+      const T sc = T(0.5) * (kabs(m00) + kabs(m11));
+      m00 = m00 + delta * sc;
+      m11 = m11 + delta * sc;
+      const T det = m00 * m11 - m01 * m01;
+      i00 = m11 / det;
+      i01 = -m01 / det;
+      i11 = m00 / det;
+    } else {
+      T m00 = v2[0] + ds[0] * ds[0];
+      m00 = m00 * (T(1) + delta);
+      i00 = T(1) / m00;
+    }
+    T yg[K], ya[K];
+    if constexpr (K == 2) {
+      yg[0] = i00 * v2[1] + i01 * v2[2];
+      yg[1] = i01 * v2[1] + i11 * v2[2];
+      ya[0] = i00 * v2[3] + i01 * v2[4];
+      ya[1] = i01 * v2[3] + i11 * v2[4];
+    } else {
+      yg[0] = i00 * v2[1];
+      ya[0] = i00 * v2[2];
+    }
+
+    // pass 3: the p = 1 Schur sums a . H^-1 a and a . H^-1 g
+    T v3[2];
+    {
+      Sums<T, 2, BLK> ps;
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        ps.start(c);
+        const int i = t0 + S * c;
+        if (i >= n) continue;
+        const T ihi = ihk[c], ai = a0[i];
+        T vg = gk[c] * ihi, va = ai * ihi;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const T ud = Hb[j * sHk + i] * ihi;
+          vg = vg - ud * yg[j];
+          va = va - ud * ya[j];
+        }
+        ps.add(0, ai * va);
+        ps.add(1, ai * vg);
+      }
+      ps.totals(v3);
+    }
+    group_total<2, 0>(g, v3);
+    const T wv = -((bb - ax) + v3[1]) / v3[0];
+
+    // pass 4: dx (kept), q = dx . g, rows . dx and the largest feasible
+    // step
+    T v4[K + 2];      // q, rows . dx, the least step to a bound x_i = 0
+    {
+      Sums<T, K + 1, BLK> ps;
+      T sx = T(INFINITY);
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        ps.start(c);
+        const int i = t0 + S * c;
+        if (i >= n) continue;
+        const T xi = x[c];
+        T row[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) row[j] = Hb[j * sHk + i];
+        const T gi = gk[c], ihi = ihk[c], ai = a0[i];
+        T vg = gi * ihi, va = ai * ihi;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const T ud = row[j] * ihi;
+          vg = vg - ud * yg[j];
+          va = va - ud * ya[j];
+        }
+        const T d = -(vg + va * wv);
+        dx[c] = d;
+        ps.add(0, d * gi);
+#pragma unroll
+        for (int j = 0; j < K; ++j) ps.add(1 + j, row[j] * d);
+        sx = jmin(sx, d < T(0) ? -xi / d : T(INFINITY));
+      }
+      ps.totals(v4);
+      v4[K + 1] = sx;
+    }
+    group_total<K + 1, 1>(g, v4);
+    const T q = v4[0];
+    T s_max = jmin(v4[K + 1], T(1.0 / 0.99));
+    T udx[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      udx[j] = v4[1 + j];
+      s_max = jmin(s_max, udx[j] > T(0) ? ds[j] / udx[j] : T(INFINITY));
+    }
+    s_max = T(0.99) * s_max;
+
+    // pass 5: the candidates in order, one a pass, each writing its logs
+    // over log x; every thread holds the same totals, so each exit is
+    // uniform over the block
+    T s_best = T(0);
+    bool handed_over = false, lx_spent = false;
+    if (q < -eps && (s_max > T(0) || ls_neg)) {
+      const bool first_wins = ls_desc && s_max > T(0);
+      bool done = false;
+      for (int l = 0; l < n_ls && !done; ++l) {
+        const T ss = s_max * ls_ts[l];
+        T v5[3];      // the candidate's two f0 sums, and x_i <= 0 seen
+        {
+          Sums<T, 2, BLK> ps;
+          T bad = T(0);
+#pragma unroll
+          for (int c = 0; c < nc; ++c) {
+            ps.start(c);
+            const int i = t0 + S * c;
+            if (i >= n) continue;
+            const T xs = x[c] + ss * dx[c];
+            if (!(xs > T(0))) bad = T(1);
+            const T lxs = klog(xs > T(0) ? xs : T(1));
+            lx[c] = lxs;
+            ps.add(0, xs * (lognv + lxs));
+            ps.add(1, lxs);
+          }
+          ps.totals(v5);
+          v5[2] = bad;
+        }
+        lx_spent = true;
+        group_total<3, 0>(g, v5);
+        if (v5[2] > T(0)) continue;       // a coordinate would leave x > 0
+        T fs = t * v5[0] - v5[1];
+        bool ok = true;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const T dsj = ds[j] - ss * udx[j];
+          ok = ok && dsj > T(0);
+          fs = fs - klog(dsj > T(0) ? dsj : T(1));
+        }
+        const bool armijo = fs <= f0 + alpha * ss * q;
+        if (!(ok && armijo && ss > s_best)) continue;
+        s_best = ss;
+        done = first_wins;
+        if (done) {        // the last candidate evaluated: its logs stand
+          sum_xl = v5[0];
+          sum_l = v5[1];
+          handed_over = true;
+        }
+      }
+    }
+    // no-step guard: a non-finite dx never reaches x (0 * NaN = NaN)
+    if (s_best > T(0)) {
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int i = t0 + S * c;
+        if (i < n) x[c] = x[c] + s_best * dx[c];
+      }
+      have_logs = handed_over;
+    } else if (lx_spent) {
+      have_logs = false;
+    }
+  }
+  if constexpr (W != kGlobal) {
+    T* xb = xout + (long long)b * n;
+#pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      const int i = t0 + S * c;
+      if (i < n) xb[i] = x[c];
+    }
+  }
+}
+
+// G for the group path (n > kRegMaxN)
+inline int group_warps(int n, int B) {
+  int G = 1;
+  while (G < kGroupMaxWarps && 32 * G * kGroupNC < n &&
+         ((long long)B * G < kGroupFillWarps || 32 * G * kGroupFullNC < n))
+    G *= 2;
+  return G;
+}
+
+#define KL_K3_ARGS                                                         \
+  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, ts, ls_ts, x, B, n,  \
+      n_outer, n_inner, n_ls, lognv, delta, alpha
+#define KL_K3_GROUP_ARGS                                                   \
+  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, ts, ls_ts, x,        \
+      scratch, B, n, n_outer, n_inner, n_ls, lognv, delta, alpha, G
+
+template <typename T, int K>
+void launch_k(const T* H, const T* u, const T* A, const T* bv, const T* x0,
+              long long sHb, long long sHk, long long sub, long long suk,
+              long long sAb, long long sbb, long long sxb, const T* ts,
+              const T* ls_ts, T* x, T* scratch, int B, int n, int n_outer,
+              int n_inner, int n_ls, const T* lognv, T delta, T alpha,
+              cudaStream_t st) {
+  if (n <= kRegMaxN) {
+    const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    if (n <= 4 * 32)
+      kl_barrier_kernel<T, K, 4><<<blocks, kThreads, 0, st>>>(KL_K3_ARGS);
+    else
+      kl_barrier_kernel<T, K, kRegMaxN / 32><<<blocks, kThreads, 0, st>>>(
+          KL_K3_ARGS);
+    return;
+  }
+  const int G = group_warps(n, B);
+  const int per = G == 1 ? kGroupBlockWarps : 1;
+  const int blocks = (B + per - 1) / per;
+  const int threads = 32 * G * per;
+  const int c = (n + 32 * G - 1) / (32 * G);
+  if (c <= kGroupNC) {
+    kl_barrier_group_kernel<T, K, kGroupNC, kRegisters>
+        <<<blocks, threads, 0, st>>>(KL_K3_GROUP_ARGS);
+  } else {
+    const long long smem =
+        (long long)per * kGroupRows * n * (long long)sizeof(T);
+    if (smem <= kGroupSmemBytes) {
+      cudaFuncSetAttribute(kl_barrier_group_kernel<T, K, 0, kShared>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+      kl_barrier_group_kernel<T, K, 0, kShared>
+          <<<blocks, threads, (size_t)smem, st>>>(KL_K3_GROUP_ARGS);
+    } else {
+      kl_barrier_group_kernel<T, K, 0, kGlobal>
+          <<<blocks, threads, 0, st>>>(KL_K3_GROUP_ARGS);
+    }
+  }
+}
+#undef KL_K3_ARGS
+#undef KL_K3_GROUP_ARGS
 
 template <typename T>
 int launch_k3(const void* H, const void* u, const void* A, const void* bv,
@@ -443,20 +918,19 @@ int launch_k3(const void* H, const void* u, const void* A, const void* bv,
               void* stream) {
   if (B < 1 || n < 1 || n_outer < 0 || n_inner < 0 || n_ls < 1)
     return cudaErrorInvalidValue;
-  const int nc = (n + 31) / 32;
   cudaStream_t st = (cudaStream_t)stream;
   if (k == 1)
-    launch_nc<T, 1>(nc, (const T*)H, (const T*)u, (const T*)A, (const T*)bv,
-                    (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
-                    (const T*)ts, (const T*)ls_ts, (T*)x, (T*)scratch, B, n,
-                    n_outer, n_inner, n_ls, (const T*)lognv, T(delta),
-                    T(alpha), st);
+    launch_k<T, 1>((const T*)H, (const T*)u, (const T*)A, (const T*)bv,
+                   (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
+                   (const T*)ts, (const T*)ls_ts, (T*)x, (T*)scratch, B, n,
+                   n_outer, n_inner, n_ls, (const T*)lognv, T(delta),
+                   T(alpha), st);
   else if (k == 2)
-    launch_nc<T, 2>(nc, (const T*)H, (const T*)u, (const T*)A, (const T*)bv,
-                    (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
-                    (const T*)ts, (const T*)ls_ts, (T*)x, (T*)scratch, B, n,
-                    n_outer, n_inner, n_ls, (const T*)lognv, T(delta),
-                    T(alpha), st);
+    launch_k<T, 2>((const T*)H, (const T*)u, (const T*)A, (const T*)bv,
+                   (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
+                   (const T*)ts, (const T*)ls_ts, (T*)x, (T*)scratch, B, n,
+                   n_outer, n_inner, n_ls, (const T*)lognv, T(delta),
+                   T(alpha), st);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

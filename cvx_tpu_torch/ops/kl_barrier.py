@@ -39,9 +39,45 @@ import torch
 from . import _build
 from .cholesky import default_delta
 
-# the kernel keeps per-coordinate state in registers up to this n and in a
-# (B, 6, n) scratch tensor above it (kRegMaxN in csrc/kl_barrier.cu)
+# csrc/kl_barrier.cu's launcher: the register path up to _REG_MAX_N
+# (kRegMaxN), the group path above it (kGroup*; path_of mirrors the rule)
 _REG_MAX_N = 256
+_GROUP_NC = 8
+_GROUP_FULL_NC = 16
+_GROUP_FILL_WARPS = 4096
+_GROUP_MAX_WARPS = 16
+_GROUP_BLOCK_WARPS = 4
+_GROUP_ROWS = 5
+_RED_MAX = 8
+_GROUP_SMEM_BYTES = 232448 - 2 * _GROUP_MAX_WARPS * _RED_MAX * 8
+
+
+def path_of(n, B, dtype):
+    """The path ``csrc/kl_barrier.cu``'s launcher takes for B instances of
+    n coordinates in ``dtype``: ``"register"`` (n <= 256: one warp an
+    instance, its coordinates' state in registers), or ``("group", G,
+    where)``: one instance per G warps (G doubles from 1 while a thread
+    would own more than ``_GROUP_NC`` coordinates, and either B G warps do
+    not fill the card or it would own more than ``_GROUP_FULL_NC``, up to
+    ``_GROUP_MAX_WARPS``), a thread's x, log x, dx, g and 1/h in
+    ``"registers"`` (it owns at most ``_GROUP_NC`` coordinates),
+    ``"shared"`` memory (a block's fit) or ``"global"`` memory (the
+    wrapper's (B, 4, n) scratch)."""
+    if n <= _REG_MAX_N:
+        return "register"
+    G = 1
+    while G < _GROUP_MAX_WARPS and 32 * G * _GROUP_NC < n and (
+            B * G < _GROUP_FILL_WARPS or 32 * G * _GROUP_FULL_NC < n):
+        G *= 2
+    per = _GROUP_BLOCK_WARPS if G == 1 else 1
+    size = torch.finfo(dtype).bits // 8
+    if -(-n // (32 * G)) <= _GROUP_NC:
+        where = "registers"
+    elif per * _GROUP_ROWS * n * size <= _GROUP_SMEM_BYTES:
+        where = "shared"
+    else:
+        where = "global"
+    return ("group", G, where)
 
 
 def fused_n_outer(m_total: int, *, t0: float = 1.0, mu: float = 30.0,
@@ -265,9 +301,11 @@ def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
 
     CPU tensors run the plain version.  CUDA tensors (f32 or f64, all of
     one dtype; any batch stride, so shared rows may be stride-0 expands)
-    run the CUDA kernel, one warp per instance, on the current stream;
-    anything it does not take raises.  ``kl_barrier_fused.launches``
-    counts kernel launches.
+    run the CUDA kernel on the current stream: for n <= 256 one warp per
+    instance, for larger n one instance per G warps (``path_of`` gives G
+    and where a thread's per-coordinate state lives; only ``"global"``
+    allocates a (B, 4, n) scratch tensor).  Anything it does not take raises.
+    ``kl_barrier_fused.launches`` counts kernel launches.
     """
     n_outer = _check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
                           n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
@@ -287,8 +325,10 @@ def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     x = torch.empty((B, n), dtype=dtype, device=dev)
     if B == 0:
         return x
-    scratch = (torch.empty((B, 6, n), dtype=dtype, device=dev)
-               if n > _REG_MAX_N else x)     # unread at n <= _REG_MAX_N
+    path = path_of(n, B, dtype)
+    scratch = (torch.empty((B, _GROUP_ROWS - 1, n), dtype=dtype,
+                           device=dev)
+               if path != "register" and path[2] == "global" else x)
     fn = ("kl_barrier_fused_f32" if dtype == torch.float32
           else "kl_barrier_fused_f64")
     ptr = _build.ptr

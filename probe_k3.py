@@ -1,25 +1,28 @@
 """Variants of K3 (``cvx_tpu_torch/ops/csrc/kl_barrier.cu``) on one NVIDIA
 GPU: registers, bits and times.
 
-Builds the committed source and its variants (the line-search chunk
-``kLsChunk`` in {1, 2, 4}, with and without ``__launch_bounds__(kThreads,
-8)``; ``kWarpsPerBlock`` in {1, 2, 8}), each with ``_build.NVCC_FLAGS``
-plus ``-Xptxas -v``, one nvcc each, all started together, into
-``_probe/build`` (gitignored); prints the
-registers and spills of every template instance; holds every variant, and
-the baseline source if one is given, to the committed kernel bit for bit
-and to the plain version on bench.py's family and on edge cases; with
-``--time`` times them at 10,000 x n = 100 (k = 2 and k = 1 in f32, k = 2
-in f64) with CUDA events, in turns (forward, then backward), the committed
-and baseline kernels also with the schedule's scalars copied from the
-host (``host_schedule``: each copy waits for the stream).
+Builds the committed source, a baseline (an earlier ``kl_barrier.cu`` with
+the same C interface, e.g. ``git show
+<commit>:cvx_tpu_torch/ops/csrc/kl_barrier.cu``) and text-substituted
+variants, each with ``_build.NVCC_FLAGS`` plus ``-Xptxas -v``, one nvcc
+each, all started together, into ``_probe/build`` (gitignored); prints the
+registers and spills of every template instance; holds the committed
+kernel to the plain version (``chip_smoke.py``'s tolerances, NaN in the
+same places) on bench.py's family and on edge cases at both paths (n <=
+256 the register path, n > 256 the other), the baseline to the committed
+kernel bit for bit on the register path, and every other variant to what
+its kind says (``VARIANTS``); with ``--time`` times them in turns (forward,
+then backward) with CUDA events at ``TIME_CASES``, each beside its bound
+(``_bench.bound`` with ``k3_ops``) and, with ``--plain``, the plain
+version's time.
 
-    python3 probe_k3.py [--baseline OLD.cu] [--time] [--out DIR]
+    python3 probe_k3.py [--baseline OLD.cu] [--time] [--plain]
+                        [--only V1,V2] [--out DIR]
 
-The baseline is any earlier version of ``kl_barrier.cu`` with the same C
-interface, e.g. ``git show <commit>:cvx_tpu_torch/ops/csrc/kl_barrier.cu``.
-Needs a CUDA device and nvcc; writes nvcc's full reports to
-``DIR/ptxas_<variant>.txt`` (default ``_probe/build``).
+``--only`` picks the variants built beside the committed source and the
+baseline (default ``DEFAULT``).  Needs a CUDA device and nvcc; writes
+nvcc's full reports to ``DIR/ptxas_<variant>.txt`` and the whole log to
+``DIR/log.txt`` (default ``_probe/build``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -35,7 +39,9 @@ from pathlib import Path
 
 import torch
 
-from chip_smoke import bench_family, feasible_points, primal_args
+from chip_smoke import K3_F64_TOL, K3_TOL
+from cvx_tpu_torch._bench import (bench_family, bound, bytes_in, bytes_out,
+                                  feasible_points, k3_ops, primal_args)
 from cvx_tpu_torch.ops import _build
 from cvx_tpu_torch.ops import kl_barrier as kb
 
@@ -44,36 +50,118 @@ BUILD = ROOT / "_probe" / "build"
 SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 7 + [ctypes.c_void_p] * 4
        + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_double] * 2
        + [ctypes.c_void_p])
-CHUNK = re.compile(r"constexpr int kLsChunk = \d+;")
-WARPS = re.compile(r"constexpr int kWarpsPerBlock = \d+;")
+SMEM = 232448          # shared memory a block may use on the H100
+
+# Each variant: (the source it edits, the substitutions, what it is held
+# to).  "parent": the baseline when one is given, else the committed
+# source; it is held to that source bit for bit ("same").  "plain": held
+# to the plain version by the committed kernel's tolerances.  A variant
+# may also name the shapes (n, itemsize) it takes.
+VARIANTS = {
+    # the one-warp scratch path of an earlier source (n > 256) hands the
+    # accepted candidate's logs over in its log row, as the register path
+    # does in registers: the same bits, without pass 1's logs after a step
+    "logs": ("parent", [
+        ("            if constexpr (NC > 0) lc[l][c] = lxs;\n",
+         "            if constexpr (NC > 0) lc[l][c] = lxs; else lx[c] = "
+         "lxs;\n"),
+        ("          if constexpr (NC > 0) {\n            if (done) {\n"
+         "#pragma unroll\n              for (int c = 0; c < nc; ++c)\n"
+         "                if (lane + 32 * c < n) lx[c] = lc[l][c];\n",
+         "          if (done) {\n            if constexpr (NC > 0) {\n"
+         "#pragma unroll\n              for (int c = 0; c < nc; ++c)\n"
+         "                if (lane + 32 * c < n) lx[c] = lc[l][c];\n"
+         "            }\n            {\n"),
+        ("      have_logs = handed_over;\n    }\n",
+         "      have_logs = handed_over;\n    }\n"
+         "    if (NC == 0 && !handed_over) have_logs = false;\n")],
+        "same", None),
+    # the one-warp scratch path's six rows in shared memory, not L2: the
+    # same bits, where 4 instances' rows fit in a block
+    "smem": ("parent", [
+        ("  T* srow = scratch + (long long)b * kScratchRows * n + lane;\n",
+         "  extern __shared__ unsigned char probe_smem[];\n"
+         "  T* srow = reinterpret_cast<T*>(probe_smem) + (threadIdx.x >> 5)"
+         " * kScratchRows * n + lane;\n"),
+        ("    kl_barrier_kernel<T, K, 0><<<blocks, kThreads, 0, st>>>"
+         "(KL_K3_ARGS);\n",
+         "  {\n    const int sm = kWarpsPerBlock * kScratchRows * n * "
+         "(int)sizeof(T);\n    cudaFuncSetAttribute(kl_barrier_kernel<T, K,"
+         " 0>, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);\n"
+         "    kl_barrier_kernel<T, K, 0><<<blocks, kThreads, sm, st>>>"
+         "(KL_K3_ARGS);\n  }\n")],
+        "same", lambda n, size: 4 * 6 * n * size <= SMEM),
+    # the register path's line-search chunk and instances a block
+    "C2": ("committed", [("constexpr int kLsChunk = 1;",
+                          "constexpr int kLsChunk = 2;")], "same", None),
+    "W2": ("committed", [("constexpr int kWarpsPerBlock = 4;",
+                          "constexpr int kWarpsPerBlock = 2;")], "same",
+           None),
+    # the group path (n > 256): G's fill rule and cap, groups of one warp
+    # (the scratch path's layout of the work: one warp's serial chain an
+    # instance), and an f32 thread's sums past 8 terms: plain, or each term
+    # compensated
+    "fill1024": ("committed", [("constexpr int kGroupFillWarps = 4096;",
+                                "constexpr int kGroupFillWarps = 1024;")],
+                 "plain", None),
+    "full32": ("committed", [("constexpr int kGroupFullNC = 16;",
+                              "constexpr int kGroupFullNC = 32;")],
+               "plain", None),
+    "M8": ("committed", [("while (G < kGroupMaxWarps &&",
+                          "while (G < 8 &&")], "plain", None),
+    "G1": ("committed", [("while (G < kGroupMaxWarps &&",
+                          "while (G < 1 &&")], "plain", None),
+    "nocomp": ("committed", [("constexpr bool BLK = sizeof(T) == "
+                              "sizeof(float) && NC == 0;",
+                              "constexpr bool BLK = false;")], "plain",
+               None),
+    "kahan": ("committed", [("if (c > 0 && c % kGroupNC == 0) flush();",
+                             "if (c > 0) flush();")], "plain", None),
+}
+DEFAULT = "fill1024,full32,M8,G1,nocomp,kahan"
 
 
-def variants(baseline):
-    src = (ROOT / "cvx_tpu_torch/ops/csrc/kl_barrier.cu").read_text()
-    assert len(CHUNK.findall(src)) == 1 and len(WARPS.findall(src)) == 1
-    out = {"committed": src}
+_LOG = []
+
+
+def say(*parts):
+    """print, and keep the line for ``DIR/log.txt``."""
+    line = " ".join(str(p) for p in parts)
+    print(line, flush=True)
+    _LOG.append(line)
+
+
+def sources(baseline, only):
+    """{name: (source text, held to, takes(n, itemsize) or None)}"""
+    committed = (ROOT / "cvx_tpu_torch/ops/csrc/kl_barrier.cu").read_text()
+    out = {"committed": (committed, "plain", None)}
+    parent = committed
     if baseline:
-        out["baseline"] = Path(baseline).read_text()
-    for c in (1, 2, 4):
-        for m in (None, 8):
-            s = CHUNK.sub(f"constexpr int kLsChunk = {c};", src)
-            if m:
-                s = s.replace("__launch_bounds__(kThreads)",
-                              f"__launch_bounds__(kThreads, {m})")
-            out[f"C{c}" + (f"_M{m}" if m else "")] = s
-    for w in (1, 2, 8):
-        out[f"W{w}"] = WARPS.sub(f"constexpr int kWarpsPerBlock = {w};", src)
+        parent = Path(baseline).read_text()
+        out["baseline"] = (parent, "register", None)
+    for name in only:
+        base, subs, held, takes = VARIANTS[name]
+        src = parent if base == "parent" else committed
+        for old, new, *count in subs:
+            if src.count(old) != (count[0] if count else 1):
+                raise SystemExit(f"variant {name}: {old!r} does not match "
+                                 "its source as often as it should")
+            src = src.replace(old, new)
+        out[name] = (src, held, takes)
     return out
 
 
 def parse_ptxas(report):
-    """{"f k=2 NC=4": {"regs": r, "spill": "stores/loads"}, ...}"""
+    """{"kernel f k=2 NC=4 [where=W]": {"regs": r, "spill": "stores/loads"},
+    ...}"""
     res, cur = {}, None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*kl_barrier_kernelI([fd])"
-                      r"Li(\d)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\w*?(kl_barrier\w*?kernel)I"
+                      r"([fd])Li(\d)ELi(\d+)E(?:\w*?WhereE(\d)E)?", line)
         if m:
-            cur = res.setdefault(f"{m[1]} k={m[2]} NC={m[3]}", {})
+            where = f" where={m[5]}" if m[5] else ""
+            cur = res.setdefault(f"{m[1]} {m[2]} k={m[3]} NC={m[4]}{where}",
+                                 {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and cur is not None:
@@ -88,7 +176,7 @@ def build(srcs, out):
     BUILD.mkdir(parents=True, exist_ok=True)
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, src in srcs.items():
+    for name, (src, _, _) in srcs.items():
         cu = BUILD / f"{name}.cu"
         cu.write_text(src)
         procs[name] = subprocess.Popen(
@@ -101,7 +189,7 @@ def build(srcs, out):
         (out / f"ptxas_{name}.txt").write_text(report)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{report[-4000:]}")
-        print("ptxas", name, json.dumps(parse_ptxas(report), sort_keys=True))
+        say("ptxas", name, json.dumps(parse_ptxas(report), sort_keys=True))
         lib = ctypes.CDLL(str(BUILD / f"{name}.so"))
         for fn in ("kl_barrier_fused_f32", "kl_barrier_fused_f64"):
             getattr(lib, fn).argtypes = SIG
@@ -113,30 +201,18 @@ def build(srcs, out):
     return libs
 
 
-def host_schedule(n, dtype, device, *, t0, mu, n_outer, beta, n_ls):
-    """``_schedule`` with its scalars copied from the host, each copy
-    waiting for the stream, as the wrapper built them before it filled
-    them on the device: the same values."""
-    def c(v):
-        return torch.tensor(v, dtype=dtype, device=device)
-
-    stage = torch.arange(n_outer, device=device).to(dtype)
-    ts = t0 * torch.exp(stage * torch.log(c(float(mu))))
-    kk = torch.arange(n_ls, device=device)
-    expo = torch.where(kk < 32, kk, 32 + 3 * (kk - 32)).to(dtype)
-    return ts, torch.pow(c(float(beta)), expo), torch.log(c(float(n)))
-
-
 def run(lib, Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8, n_outer=None,
-        n_inner=8, alpha=0.04, beta=0.8, n_ls=12, schedule=kb._schedule):
-    """``kl_barrier_fused`` on the library ``lib``."""
+        n_inner=8, alpha=0.04, beta=0.8, n_ls=12):
+    """``kl_barrier_fused`` on the library ``lib``, with a scratch tensor
+    large enough for every source this probe builds (the one-warp
+    scratch path took (B, 6, n) above n = 256)."""
     n_outer = kb._check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
                              n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
     strides = kb._kernel_strides(Hs, u, A, b, x0)
     B, k, n = Hs.shape
     dtype, dev = Hs.dtype, Hs.device
-    ts, ls_ts, lognv = schedule(n, dtype, dev, t0=t0, mu=mu,
-                                n_outer=n_outer, beta=beta, n_ls=n_ls)
+    ts, ls_ts, lognv = kb._schedule(n, dtype, dev, t0=t0, mu=mu,
+                                    n_outer=n_outer, beta=beta, n_ls=n_ls)
     x = torch.empty((B, n), dtype=dtype, device=dev)
     scratch = (torch.empty((B, 6, n), dtype=dtype, device=dev)
                if n > kb._REG_MAX_N else x)
@@ -163,38 +239,169 @@ def same_bits(a, b):
     return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
 
 
+PROD = dict(mu=55.0, n_inner=3)
+
+
 def cases(dev):
+    """(name, K3 args, options) to check."""
     f32, f64 = torch.float32, torch.float64
-    prod = dict(mu=55.0, n_inner=3)
     out = [("bench 10000x100 k=2 f32", family(10000, 100, 2, 0, dev, f32),
-            prod),
+            PROD),
            ("bench 10000x100 k=1 f32", family(10000, 100, 1, 0, dev, f32),
-            prod),
+            PROD),
            ("bench 10000x100 k=2 f64", family(10000, 100, 2, 0, dev, f64),
-            prod),
+            PROD),
            ("1000x100 default schedule", family(1000, 100, 2, 3, dev, f32),
             {})]
-    for n, B, NC in ((77, 37, 4), (200, 64, 8), (300, 16, 0)):
+    for n, B in ((77, 37), (200, 64)):
         for k, dtype in ((2, f32), (1, f64)):
-            out.append((f"{B}x{n} k={k} {str(dtype)[6:]} (NC={NC})",
-                        family(B, n, k, n, dev, dtype), prod))
+            out.append((f"{B}x{n} k={k} {str(dtype)[6:]}",
+                        family(B, n, k, n, dev, dtype), PROD))
     for ls in (dict(n_ls=1), dict(n_ls=40), dict(beta=1.25),
                dict(beta=-0.8)):
         out.append((f"1000x100 {ls}", family(1000, 100, 2, 1100, dev, f32),
-                    dict(prod, **ls)))
-    bound = family(4, 100, 2, 3, dev, f32)
-    bound[4] = bound[4].clone()
-    bound[4][2, 40] = 0.0
-    out.append(("x0 on a bound", bound, prod))
+                    dict(PROD, **ls)))
+    bound_case = family(4, 100, 2, 3, dev, f32)
+    bound_case[4] = bound_case[4].clone()
+    bound_case[4][2, 40] = 0.0
+    out.append(("x0 on a bound n=100", bound_case, PROD))
+    # n > 256: every n in f32 and f64, ragged batches, the acceptance
+    # table's shapes, f64 past a block's shared memory
+    for B, n, k, dtype in ((37, 257, 2, f32), (37, 257, 1, f64),
+                           (16, 300, 2, f32), (16, 300, 1, f64),
+                           (13, 1000, 1, f32), (1000, 1000, 2, f32),
+                           (1000, 1000, 2, f64), (100, 10000, 2, f32),
+                           (100, 10000, 1, f64), (10000, 300, 2, f32),
+                           (4, 30000, 2, f64)):
+        out.append((f"{B}x{n} k={k} {str(dtype)[6:]}",
+                    family(B, n, k, n + k, dev, dtype), PROD))
+    out.append((f"1000x1000 {dict(beta=1.25)}",
+                family(1000, 1000, 2, 7, dev, f32), dict(PROD, beta=1.25)))
+    bound_case = family(4, 300, 2, 3, dev, f32)
+    bound_case[4] = bound_case[4].clone()
+    bound_case[4][2, 40] = 0.0
+    out.append(("x0 on a bound n=300", bound_case, PROD))
     return out
+
+
+# (name, B, n, k, dtype): the shapes timed, bench.py's schedule
+TIME_CASES = (("100x10000 k=2 f32", 100, 10000, 2, torch.float32),
+              ("1000x1000 k=2 f32", 1000, 1000, 2, torch.float32),
+              ("10000x300 k=2 f32", 10000, 300, 2, torch.float32),
+              ("10000x1000 k=2 f32", 10000, 1000, 2, torch.float32),
+              ("1000x1000 k=2 f64", 1000, 1000, 2, torch.float64),
+              ("100x10000 k=2 f64", 100, 10000, 2, torch.float64),
+              ("10000x100 k=2 f32 (register path)", 10000, 100, 2,
+               torch.float32))
+
+
+def check(libs, srcs, dev):
+    """Holds every build to what it is held to; returns whether all held."""
+    all_ok = True
+    for cname, a, kw in cases(dev):
+        B, _, n = a[0].shape
+        size = a[0].element_size()
+        xp, cand = kb.kl_barrier_fused_plain(*a, count_candidates=True, **kw)
+        ref = run(libs["committed"], *a, **kw)
+        parent = run(libs["baseline"], *a, **kw) if "baseline" in libs \
+            else ref
+        torch.cuda.synchronize()
+        tol = K3_TOL if a[0].dtype == torch.float32 else K3_F64_TOL
+        dx = float((ref - xp).nan_to_num().abs().max())
+        nan_ok = torch.equal(torch.isnan(ref), torch.isnan(xp))
+        ok = nan_ok and dx <= tol
+        if cname.startswith("x0 on a bound"):
+            ok = ok and torch.equal(ref[2], a[4][2]) and bool(
+                torch.isfinite(ref).all())
+        all_ok &= ok
+        steps = kb.fused_n_outer(a[0].shape[1] + n, mu=kw.get("mu", 30.0)) \
+            * kw.get("n_inner", 8)
+        line = [f"{cname}: path {kb.path_of(n, B, a[0].dtype)}; committed - "
+                f"plain max|dx| {dx:.3e} (tol {tol:g}, NaN same {nan_ok})"
+                f"{'' if ok else ' FAILS'}, candidates/step "
+                f"{float(cand.double().mean()) / steps:.4f}"]
+        for name, lib in libs.items():
+            held, takes = srcs[name][1], srcs[name][2]
+            if name == "committed" or (takes and not takes(n, size)):
+                continue
+            got = parent if name == "baseline" else run(lib, *a, **kw)
+            if held == "register":
+                if n > kb._REG_MAX_N:
+                    e = float((got - xp).nan_to_num().abs().max())
+                    line.append(f"{name} - plain {e:.3e}")
+                    continue
+                same = same_bits(got, ref)
+            elif held == "same":
+                same = same_bits(got, parent)
+            else:                      # "plain"
+                e = float((got - xp).nan_to_num().abs().max())
+                same = e <= tol and torch.equal(torch.isnan(got),
+                                                torch.isnan(xp))
+                line.append(f"{name} - plain {e:.3e}"
+                            f"{'' if same else ' FAILS'}")
+                all_ok &= same
+                continue
+            all_ok &= same
+            line.append(f"{name} {'same bits' if same else 'DIFFERS'}")
+        say(" | ".join(line))
+    return all_ok
+
+
+def time_cases(libs, srcs, dev, smi, plain):
+    for cname, B, n, k, dtype in TIME_CASES:
+        a = family(B, n, k, 0, dev, dtype)
+        size = a[0].element_size()
+        fns = {name: (lambda lib=lib: run(lib, *a, **PROD))
+               for name, lib in libs.items()
+               if not (srcs[name][2] and not srcs[name][2](n, size))}
+        if plain:
+            fns["plain"] = lambda: kb.kl_barrier_fused_plain(*a, **PROD)
+        first = {}
+        for name, fn in fns.items():       # clocks up, and the reps
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            first[name] = time.perf_counter() - t0
+        reps = {name: max(2, min(50, math.ceil(0.05 / s)))
+                for name, s in first.items()}
+        runs = {name: [] for name in fns}
+        for name in list(fns) + list(fns)[::-1]:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps[name]):
+                fns[name]()
+            stop.record()
+            torch.cuda.synchronize()
+            runs[name].append(start.elapsed_time(stop) / reps[name])
+        xk = run(libs["committed"], *a, **PROD)
+        _, cand = kb.kl_barrier_fused_plain(*a, count_candidates=True,
+                                            **PROD)
+        steps = kb.fused_n_outer(k + n, mu=PROD["mu"]) * PROD["n_inner"]
+        ops = k3_ops(k, n, B, steps, int(cand.sum()))
+        bms, by = bound(bytes_in(*a) + bytes_out(xk),
+                        **{"ops32" if dtype == torch.float32 else "ops64":
+                           ops})
+        say(json.dumps({"case": cname, "card": smi,
+                        "path": str(kb.path_of(n, B, dtype)), "ms": runs,
+                        "bound_ms": bms, "bound_by": by}))
+        say(f"time {cname}: " + ", ".join(
+            f"{name} {min(v):.4f}" for name, v in runs.items())
+            + f"; bound {bms:.5f} ({by})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", help="an earlier kl_barrier.cu")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--plain", action="store_true",
+                    help="with --time, also time the plain version")
+    ap.add_argument("--only", default=DEFAULT,
+                    help="variants to build beside committed and baseline")
     ap.add_argument("--out", type=Path, default=BUILD,
-                    help="directory for nvcc's reports")
+                    help="directory for nvcc's reports and the log")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_k3: no CUDA device", file=sys.stderr)
@@ -203,58 +410,20 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    libs = build(variants(args.baseline), args.out)
-    print(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
-
-    all_same = True
-    for cname, a, kw in cases(dev):
-        xp, cand = kb.kl_barrier_fused_plain(*a, count_candidates=True, **kw)
-        ref = run(libs["committed"], *a, **kw)
-        steps = kb.fused_n_outer(a[0].shape[1] + a[0].shape[2],
-                                 mu=kw.get("mu", 30.0)) * kw.get("n_inner", 8)
-        line = [f"{cname}: committed - plain max|dx| "
-                f"{float((ref - xp).nan_to_num().abs().max()):.3e}, "
-                f"candidates/step {float(cand.double().mean()) / steps:.4f}"]
-        for name, lib in libs.items():
-            if name != "committed":
-                same = same_bits(run(lib, *a, **kw), ref)
-                all_same &= same
-                line.append(f"{name} {'same bits' if same else 'DIFFERS'}")
-        print(" | ".join(line))
-    print(f"every variant the same bits as the committed kernel: {all_same}")
-    if not args.time:
-        return 0 if all_same else 1
-
-    for cname, a, kw in cases(dev)[:3]:
-        fns = {name: (lambda lib=lib: run(lib, *a, **kw))
-               for name, lib in libs.items()}
-        for name in ("committed", "baseline"):
-            if name in libs:
-                fns[name + "_host_schedule"] = (
-                    lambda lib=libs[name]: run(lib, *a, schedule=host_schedule,
-                                               **kw))
-        end = time.perf_counter() + 1.0      # clocks up before the turns
-        while time.perf_counter() < end:
-            fns["committed"]()
-        torch.cuda.synchronize()
-        runs = {name: [] for name in fns}
-        for name in list(fns) + list(fns)[::-1]:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            fns[name]()
-            torch.cuda.synchronize()
-            start.record()
-            for _ in range(50):
-                fns[name]()
-            stop.record()
-            torch.cuda.synchronize()
-            runs[name].append(start.elapsed_time(stop) / 50)
-        print(json.dumps({"case": cname, "card": smi, "ms": runs}))
-        print(f"time {cname}: " + ", ".join(
-            f"{name} {min(v):.4f}" for name, v in runs.items()))
-    return 0 if all_same else 1
+    srcs = sources(args.baseline,
+                   [v for v in args.only.split(",") if v])
+    libs = build(srcs, args.out)
+    say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
+    try:
+        ok = check(libs, srcs, dev)
+        say(f"every check held: {ok}")
+        if args.time:
+            time_cases(libs, srcs, dev, smi, args.plain)
+    finally:
+        (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -226,6 +226,19 @@ def _primal_family(B, n, k, dev, dtype):
     (64, 200, 2, torch.float32, {}),
     (64, 200, 1, torch.float64, {}),
     (16, 300, 2, torch.float32, {}),
+    # the group path (path_of): a thread's state in registers, shared
+    # memory and global memory, ragged batches, one-warp groups
+    (37, 257, 2, torch.float32, {}),
+    (37, 257, 1, torch.float64, {}),
+    (16, 300, 1, torch.float64, {}),
+    (13, 1000, 1, torch.float32, {}),
+    (1000, 1000, 2, torch.float32, {}),
+    (1000, 1000, 2, torch.float64, {}),
+    (10000, 300, 2, torch.float32, {}),
+    (100, 10000, 2, torch.float32, {}),
+    (100, 10000, 1, torch.float64, {}),
+    (4, 30000, 2, torch.float64, {}),
+    (1000, 1000, 2, torch.float32, dict(beta=1.25)),
     # one candidate; exponents past 32; increasing candidates, where the
     # kernel evaluates every one and keeps the longest accepted
     (1000, 100, 2, torch.float32, dict(n_ls=1)),
@@ -242,6 +255,21 @@ def test_k3_matches_plain(dev, B, n, k, dtype, ls):
         tol = 0.0       # the bench family: the same bits
     assert bool(torch.isfinite(x).all())
     assert float((x - xp).abs().max()) <= tol
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("n", [100, 300])
+def test_k3_no_step_guard_on_the_card(dev, n):
+    # instance 2 starts with x0 = 0 at one coordinate: its dx is not
+    # finite, and both paths must hold it at x0 as the plain version does
+    args = list(_primal_family(4, n, 2, dev, torch.float32))
+    args[4] = args[4].clone()
+    args[4][2, 40] = 0.0
+    x = kl_barrier_fused(*args, mu=55.0, n_inner=3)
+    xp = kl_barrier_fused_plain(*args, mu=55.0, n_inner=3)
+    torch.cuda.synchronize()
+    assert torch.equal(x[2], args[4][2]) and bool(torch.isfinite(x).all())
+    assert float((x - xp).abs().max()) <= 1e-5
 
 
 @pytest.mark.timeout(600)

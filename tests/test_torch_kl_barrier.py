@@ -14,6 +14,9 @@ kernel needs, which bound its work) is held to the rule read off one-step
 solves: exact counts, x unchanged bit for bit.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,6 +82,24 @@ def test_schedule_helpers_equal_reference(m, t0, mu, tol):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_plain_matches_reference(dtype, k, n, schedule):
     B = 5 if k == 2 else 3
+    ref, got = _both(_family(B, n, k, seed=n + k), dtype,
+                     **SCHEDULES[schedule])
+    assert got.dtype == dtype and got.shape == (B, n)
+    assert np.all(np.isfinite(got))
+    tol = F64_TOL if dtype == np.float64 else F32_TOL
+    assert np.max(np.abs(got - ref)) <= tol
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("schedule", ["production"])
+@pytest.mark.parametrize("n", [300])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_plain_matches_reference_past_the_register_path(dtype, k, n,
+                                                         schedule):
+    # n > 256: the kernel's group path (path_of), which chip_smoke.py holds
+    # to this plain version on the card
+    B = 3
     ref, got = _both(_family(B, n, k, seed=n + k), dtype,
                      **SCHEDULES[schedule])
     assert got.dtype == dtype and got.shape == (B, n)
@@ -243,3 +264,66 @@ def test_count_candidates_is_zero_for_an_instance_on_a_bound():
                                       **SCHEDULES["production"])
     assert counts == [0] * len(counts) and int(count[0]) == 0
     assert torch.equal(x, arrays[4]) and torch.equal(x_read, arrays[4])
+
+
+@pytest.mark.timeout(30)
+def test_path_of_mirrors_the_kernel_source():
+    # path_of is the C launcher's dispatch: its constants are
+    # csrc/kl_barrier.cu's, its rule the source's group_warps and launch_k
+    src = (Path(kl_barrier.__file__).parent / "csrc" /
+           "kl_barrier.cu").read_text()
+    const = {m[1]: int(m[2]) for m in
+             re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert kl_barrier._REG_MAX_N == const["kRegMaxN"]
+    assert kl_barrier._GROUP_NC == const["kGroupNC"]
+    assert kl_barrier._GROUP_FULL_NC == const["kGroupFullNC"]
+    assert kl_barrier._GROUP_FILL_WARPS == const["kGroupFillWarps"]
+    assert kl_barrier._GROUP_MAX_WARPS == const["kGroupMaxWarps"]
+    assert kl_barrier._GROUP_BLOCK_WARPS == const["kGroupBlockWarps"]
+    assert kl_barrier._GROUP_ROWS == const["kGroupRows"]
+    assert kl_barrier._RED_MAX == const["kRedMax"]
+    flat = " ".join(src.replace("\\\n", " ").split())  # macros joined
+    for rule in ("if (n <= kRegMaxN) {",
+                 "while (G < kGroupMaxWarps && 32 * G * kGroupNC < n && "
+                 "((long long)B * G < kGroupFillWarps || 32 * G * "
+                 "kGroupFullNC < n)) G *= 2;",
+                 "const int per = G == 1 ? kGroupBlockWarps : 1;",
+                 "const int c = (n + 32 * G - 1) / (32 * G);",
+                 "if (c <= kGroupNC) {",
+                 "const long long smem = (long long)per * kGroupRows * n * "
+                 "(long long)sizeof(T); if (smem <= kGroupSmemBytes) {",
+                 "constexpr int kGroupSmemBytes = 232448 - 2 * "
+                 "kGroupMaxWarps * kRedMax * 8;"):
+        assert rule in flat, rule
+    f32, f64 = torch.float32, torch.float64
+    path_of = kl_barrier.path_of
+    assert path_of(256, 10000, f32) == "register"
+    assert path_of(1, 1, f64) == "register"
+    # G doubles past each 256 G coordinates, up to 16, while B G warps do
+    # not fill the card
+    for n, G in ((257, 2), (512, 2), (513, 4), (1024, 4), (1025, 8),
+                 (2049, 16), (4096, 16), (10000, 16)):
+        assert path_of(n, 8, f32)[:2] == ("group", G)
+        assert path_of(n, 8, f32)[2] == ("registers" if n <= 4096 else
+                                         "shared")
+    # a full card stops G where a thread owns at most 16 coordinates
+    assert path_of(300, 10000, f32) == ("group", 1, "shared")
+    assert path_of(512, 10000, f32) == ("group", 1, "shared")
+    assert path_of(513, 10000, f32) == ("group", 2, "shared")
+    assert path_of(1000, 10000, f32) == ("group", 2, "shared")
+    assert path_of(1000, 1000, f32) == ("group", 4, "registers")
+    assert path_of(1000, 1000, f64) == ("group", 4, "registers")
+    # shared memory while a block's five rows fit, else global
+    assert path_of(10000, 100, f32) == ("group", 16, "shared")
+    assert path_of(10000, 100, f64) == ("group", 16, "global")
+    assert path_of(11520, 1, f32) == ("group", 16, "shared")
+    assert path_of(11521, 1, f32) == ("group", 16, "global")
+    assert path_of(2048, 10000, f32) == ("group", 4, "shared")
+    assert path_of(2880, 10000, f32) == ("group", 8, "shared")
+    assert path_of(30000, 4, f64) == ("group", 16, "global")
+    # a block holds one instance of G warps or four one-warp instances:
+    # at most 512 threads, the kernel's launch bound
+    for n in (257, 1000, 4097, 10 ** 6):
+        for B in (1, 100, 10 ** 5):
+            _, G, _ = path_of(n, B, f32)
+            assert G & (G - 1) == 0 and 32 * G * (4 if G == 1 else 1) <= 512
