@@ -1,11 +1,25 @@
-"""Observability: profiling, solve counters, per-stage barrier history
-and the host-side KL certificate.
+"""Observability: profiling, the program's spans and counters, solve
+counters, per-stage barrier history and the host-side KL certificate.
 
 Counterpart of ``cvx_tpu/diagnostics.py`` (the reference's Logger and
 debugLevel dumps, SURVEY.md sections 5.1/5.5):
 
   * ``trace(log_dir)``: a ``torch.profiler`` context around a solve that
-    writes a Chrome trace (view in Perfetto or chrome://tracing);
+    writes a Chrome trace (view in Perfetto or chrome://tracing), with
+    the program's spans among the host events;
+  * ``span(name)``: a host range, as a context manager or a decorator,
+    recorded by ``torch.profiler`` while one records (on the clock of the
+    device's activity) and one flag check otherwise.  The program's spans:
+    ``cvx.entry.solve_certified_batch`` / ``cvx.entry.solve_jittable_batch``
+    (``DistKL``'s batched entries), ``cvx.route.cert_solution`` /
+    ``cvx.route.fused_solution`` (the Solution a route assembles),
+    ``cvx.cert.kl_dual_gap``, ``cvx.cert.polish_dual`` and
+    ``cvx.cert.kl_certify`` (the certificates), ``cvx.kernel.<wrapper>``
+    for ``kl_dual_fused``, ``kl_dual_fused_cert``, ``kl_barrier_fused`` and
+    ``cholesky_batched_cuda`` (CPU path too), ``cvx.kernel.launch`` (the
+    launch of a built kernel) and ``cvx.build.load`` (a kernel library's
+    first use: build or load);
+  * ``counters()``: the program's counters in one dict;
   * ``solve_stats``: summary counters of a (batched) Solution;
   * ``barrier_history``: a host loop of one-stage barrier solves that
     records the state after every continuation stage;
@@ -24,6 +38,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from ._spans import span
+from .ops import _build
+from .ops.chol import cholesky_batched_cuda
+from .ops.kl_barrier import kl_barrier_fused
+from .ops.kl_dual import kl_dual_fused, kl_dual_fused_cert
 from .problem.constraint_set import ConstraintSet
 from .solvers.barrier import barrier_solve
 from .solvers.types import SolverParams
@@ -48,6 +67,20 @@ def trace(log_dir: str | None = None):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def counters() -> dict:
+    """The program's counters since the process started: each kernel
+    wrapper's launches (its ``.launches``), ``nvcc_runs`` (unit -> nvcc
+    runs), ``kernel_loads`` and ``kernel_load_s`` (kernel libraries built
+    or loaded at first use, and the host seconds that took)."""
+    out = {f.__name__: f.launches for f in (
+        kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused,
+        cholesky_batched_cuda)}
+    out.update(nvcc_runs=dict(_build.nvcc_runs),
+               kernel_loads=_build.kernel_loads,
+               kernel_load_s=_build.kernel_load_s)
+    return out
 
 
 def solve_stats(sol) -> dict:

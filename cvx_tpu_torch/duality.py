@@ -25,6 +25,7 @@ import math
 
 import torch
 
+from ._spans import span
 from .ops.cholesky import _chol_nan
 
 def _small_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -93,6 +94,7 @@ def _small_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          upper=True)[..., 0]
 
 
+@span("cvx.cert.polish_dual")
 def _polish_dual(obj, z: torch.Tensor, num_ineq: int, steps: int,
                  value_band_eps: float | None = None) -> torch.Tensor:
     """Active-set projected-Newton polish of a batch of dual points z

@@ -39,6 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._spans import span
 from ..duality import _polish_dual, _small_solve, solve_dual
 from ..ops.kl_barrier import fused_final_t, fused_n_outer, kl_barrier_fused
 from ..ops.kl_dual import (_FUSED_MAX_DIM, _certify_f64, _Ctx, _polish_f64,
@@ -134,6 +135,7 @@ class _NegDualObjective:
         return (self.B * self._y(z)[..., None, :]) @ self.B.T
 
 
+@span("cvx.cert.kl_dual_gap")
 def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8,
                 value_band_eps: float | None = None, prior=None):
     """Measured duality-gap certificate of a batch of KL iterates x (B, n)
@@ -197,6 +199,7 @@ class KLCertificate:
     nu: torch.Tensor         # (B, p) polished equality duals
 
 
+@span("cvx.cert.kl_certify")
 def kl_certify(H, u, A, b, x, *, z0=None, polish_steps=6, prior=None,
                compare_input=True):
     """F64 finishing pass for a batch of KL iterates (the reference's
@@ -498,6 +501,7 @@ class DistKL:
                           polish_steps=polish_steps, prior=self.prior,
                           compare_input=False)
 
+    @span("cvx.route.cert_solution")
     def _cert_solution(self, cert, pars, iters):
         """Batched Solution from certificate leaves."""
         x, gap, ineq, eq = cert.x, cert.gap, cert.ineq_res, cert.eq_res
@@ -512,6 +516,7 @@ class DistKL:
             stalled=_stalled(x, gap, ineq, pars.tol, pars.tol_feas, eq=eq),
             ineq_res=ineq)
 
+    @span("cvx.entry.solve_certified_batch")
     def solve_certified_batch(self, u, r=None,
                               pars: SolverParams | None = None,
                               steps: int = 16, polish_steps: int = 2,
@@ -588,6 +593,7 @@ class DistKL:
         # the iterative solvers' inner loops, not a step count here
         return min(int(pars.max_iter), 8)
 
+    @span("cvx.route.fused_solution")
     def _fused_solution(self, u, x, pars) -> Solution:
         """The fused route's Solution for K3's x (B, n) on bounds u (B, k):
         the measured gap, its duals and the stall rule."""
@@ -616,6 +622,7 @@ class DistKL:
             stalled=_stalled(x, gap, ineq, math.sqrt(eps), math.sqrt(eps)),
             ineq_res=ineq)
 
+    @span("cvx.entry.solve_jittable_batch")
     def solve_jittable_batch(self, u, feasible_points,
                              method: str = "fused",
                              pars: SolverParams | None = None) -> Solution:

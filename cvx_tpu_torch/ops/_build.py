@@ -12,6 +12,11 @@ A unit is a source with the flags that select its part: ``kl_dual.cu``'s
 three entry points (60-odd template instances, which nvcc compiles one
 after another) are three units, so that they build on three cores.
 
+Counters, read through ``diagnostics.counters()``: ``nvcc_runs`` (unit ->
+the nvcc runs started for it in this process), ``kernel_loads`` and
+``kernel_load_s`` (the libraries built or bound at first use, and the host
+seconds that took, builds included).
+
 Flags: ``sm_90a`` (Hopper), no fast math (the kernels test isfinite and
 inf, and need IEEE exp/log/div/sqrt), and ``--fmad=false`` so that each
 multiply and add rounds as in the plain PyTorch version.
@@ -24,7 +29,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from .._spans import span
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -38,6 +46,9 @@ UNITS = {"kl_dual_cert": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=3",)),
          "chol": ("chol.cu", ())}
 
 _libs: dict[str, ctypes.CDLL] = {}
+nvcc_runs: dict[str, int] = {}
+kernel_loads = 0
+kernel_load_s = 0.0
 _P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_double)
 
@@ -81,8 +92,11 @@ def build_all(units=tuple(UNITS)) -> list[Path]:
     """Compile every unit not built yet, one nvcc each, all started
     together; returns the libraries' paths in the order given."""
     targets = [_target(u) for u in units]
-    running = [(src, out, *_start(src, flags, out))
-               for src, flags, out in targets if not out.exists()]
+    running = []
+    for unit, (src, flags, out) in zip(units, targets):
+        if not out.exists():
+            running.append((src, out, *_start(src, flags, out)))
+            nvcc_runs[unit] = nvcc_runs.get(unit, 0) + 1
     try:
         for src, out, proc, tmp in running:
             _finish(src, out, proc, tmp)
@@ -110,10 +124,20 @@ def bind(path, signatures: dict, error_fn: str) -> ctypes.CDLL:
     return lib
 
 
-def _load(unit: str, signatures: dict, error_fn: str) -> ctypes.CDLL:
+def _load(unit: str, signatures: dict, error_fn: str,
+          build: tuple = ()) -> ctypes.CDLL:
+    """The library of ``unit``, built (with the units of ``build`` beside
+    it) and bound at first use."""
+    global kernel_loads, kernel_load_s
     lib = _libs.get(unit)
     if lib is None:
-        lib = _libs[unit] = bind(build_all((unit,))[0], signatures, error_fn)
+        with span("cvx.build.load"):
+            t0 = time.perf_counter()
+            units = build or (unit,)
+            path = build_all(units)[units.index(unit)]
+            lib = _libs[unit] = bind(path, signatures, error_fn)
+            kernel_loads += 1
+            kernel_load_s += time.perf_counter() - t0
     return lib
 
 
@@ -126,15 +150,14 @@ KL_DUAL_SIGNATURES = {
 _KL_DUAL_UNITS = {"kl_dual_fused_f32": "kl_dual_f32",
                   "kl_dual_fused_f64": "kl_dual_f64",
                   "kl_dual_fused_cert_f32": "kl_dual_cert"}
+_KL_DUAL_BUILD = tuple(_KL_DUAL_UNITS.values())
 
 
 def load_kl_dual(fn: str) -> ctypes.CDLL:
     """The library that holds the K1/K2 entry ``fn`` (``csrc/kl_dual.cu``,
     one library per entry); the three are built together on first call."""
-    unit = _KL_DUAL_UNITS[fn]
-    if unit not in _libs:
-        build_all(tuple(_KL_DUAL_UNITS.values()))
-    return _load(unit, {fn: KL_DUAL_SIGNATURES[fn]}, "kl_dual_error_string")
+    return _load(_KL_DUAL_UNITS[fn], {fn: KL_DUAL_SIGNATURES[fn]},
+                 "kl_dual_error_string", build=_KL_DUAL_BUILD)
 
 
 def load_kl_barrier() -> ctypes.CDLL:
@@ -159,7 +182,7 @@ def launch(lib: ctypes.CDLL, fn: str, name: str, device, *args) -> None:
     raise with CUDA's message if the launch is refused."""
     import torch
 
-    with torch.cuda.device(device):
+    with span("cvx.kernel.launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
     if err != 0:

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from .._spans import span
 from . import _build
 
 _BK = 32           # column block width (kBk in csrc/chol.cu)
@@ -84,6 +85,7 @@ def held_max_n(dtype) -> int:
     return _HELD_MAX_N[dtype]
 
 
+@span("cvx.kernel.cholesky_batched_cuda")
 def cholesky_batched_cuda(x: torch.Tensor) -> torch.Tensor:
     """K4: the lower Cholesky factor of each matrix of ``x`` (B, n, n),
     upper triangle zeroed, NaN from a non-positive pivot on.

@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from .._spans import span
 from . import _build
 from .cholesky import default_delta
 
@@ -294,6 +295,7 @@ def _kernel_strides(Hs, u, A, b, x0):
             A.stride(0), b.stride(0), x0.stride(0))
 
 
+@span("cvx.kernel.kl_barrier_fused")
 def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
                      n_outer=None, n_inner=8, alpha=0.04, beta=0.8, n_ls=12):
     """K3: solve a batch of primal KL problems; returns x (B, n) as

@@ -52,6 +52,7 @@ import math
 
 import torch
 
+from .._spans import span
 from . import _build
 
 # widest dual dimension k + 1 + mE the kernels unroll in registers
@@ -625,6 +626,7 @@ def _launch(fn, name, dev, *args):
     _build.launch(_build.load_kl_dual(fn), fn, name, dev, *args)
 
 
+@span("cvx.kernel.kl_dual_fused")
 def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
                   z0=1e-3, n_ls=5):
     """K1: solve a batch of KL duals; returns ``(x, gap, z)`` as
@@ -669,6 +671,7 @@ def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
 kl_dual_fused.launches = 0
 
 
+@span("cvx.kernel.kl_dual_fused_cert")
 def kl_dual_fused_cert(Hs, u, A=None, r=None, log_prior=None, *,
                        n_steps=16, polish_steps=2, z0=1e-3, n_ls=5):
     """K2: certified batch solve; returns f64 ``(x, z, gap, ineq_res,
