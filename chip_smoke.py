@@ -8,14 +8,16 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
 * the batched certified KL dual solve (``DistKL.create`` ->
   ``solve_certified_batch`` / ``solve``; kernels K1 and K2);
 * the batched primal KL solve (``solve_jittable_batch`` /
-  ``solve_jittable`` with ``method="fused"``; kernel K3), also on its
+  ``solve_jittable`` with ``method="fused"``; kernel K3, then the gap
+  kernel ``kl_gap_fused`` for its measured certificate), also on K3's
   group path (n > 256) at 1,000 x n = 1,000 and 100 x n = 10,000;
 * the batched Cholesky (``ops.chol.cholesky_batched(method="cuda")`` on
   4096 matrices of n = 100; kernel K4);
 * the generic interior-point core in f64 (phase 4b): ``solve()`` (the
   barrier on the dual), ``solve("BR")`` and ``solve("PD")`` (phase-I, then
   the primal barrier or primal-dual method) and ``solve("fused")`` (phase-I,
-  then K3) on one instance, ``solve_jittable_batch(method="BR")`` and
+  then K3 and the gap kernel) on one instance,
+  ``solve_jittable_batch(method="BR")`` and
   ``feasibility_batch`` at 10,000 instances, and an infeasible problem;
 * phase 4c: the fleet screen (``DistKL.feasibility_screen_batch``, f32
   and f64, 10,000 x n = 100, and the eq-fold family), the QP fleet
@@ -23,7 +25,7 @@ the user entry points on bench.py's family at 10,000 instances x n = 100:
   500, 10, 100)), a resume of the first from a checkpoint on disk,
   ``minimize`` with "BR", "PD" and "BR_fast", a DiagQP batch (with its
   masked loop's steps by outer stage) and an LP batch, and the exact-f32
-  guard of the solvers, none of which launches K1-K4;
+  guard of the solvers, none of which launches a kernel;
 * phase 4d: the parallel layer (``cvx_tpu_torch.parallel``) on a
   one-rank NCCL group: ``shard_solve`` of ``solve_certified_batch`` at
   10,000 x n = 100 (K2 once, the same bits as the local call), north-star
@@ -63,14 +65,14 @@ import torch
 # bench_scaling_torch.py and probe_structured.py
 from cvx_tpu_torch._bench import (CERT_GAP, K1_DZ, K1_F64_DZ, K1_F64_TOL,
                                   K1_TOL, K2_DGAP, K2_DRES, K2_DX, K2_DZ,
-                                  K4_F64_TOL, K4_TOL, PRIMAL_CERT,
-                                  PRODUCTION, TOL_FEAS, bench_family, bound,
-                                  bytes_in, bytes_out, diagqp_data,
-                                  feasible_points, k1_agreement,
-                                  k1_ops_per_coord, k2_agreement,
-                                  k2_ops64_per_coord, k3_ops, k4_bytes,
-                                  max_abs, primal_args, qp_fleet_data,
-                                  separable_data)
+                                  K4_F64_TOL, K4_TOL, KGAP_DGAP, KGAP_DZ,
+                                  KGAP_F64_TOL, PRIMAL_CERT, PRODUCTION,
+                                  TOL_FEAS, bench_family, bound, bytes_in,
+                                  bytes_out, diagqp_data, feasible_points,
+                                  k1_agreement, k1_ops_per_coord,
+                                  k2_agreement, k2_ops64_per_coord, k3_ops,
+                                  k4_bytes, kgap_ops, max_abs, primal_args,
+                                  qp_fleet_data, separable_data)
 
 # K3 against its plain version: late Armijo decisions at t ~ 1e10 sit at
 # the f32 resolution of the barrier value, so another summation order may
@@ -368,6 +370,41 @@ def compare_k3(name, dtype, args, ls, kern, plain, prob=None, pars=None):
     return dx, xk
 
 
+def gap_args(H, U, x):
+    """``kl_gap_fused``'s arguments for the primal route's certificate of
+    iterates x (B, n) of bench.py's family: the rows, the bounds, the
+    sum-to-one row and its right-hand side."""
+    B, n = x.shape
+    ones = torch.ones((1, n), dtype=x.dtype, device=x.device)
+    return (torch.as_tensor(H, dtype=x.dtype, device=x.device),
+            torch.as_tensor(U, dtype=x.dtype, device=x.device), ones,
+            torch.ones((B, 1), dtype=x.dtype, device=x.device), x)
+
+
+def compare_gap(name, args, kern, plain, prior=None):
+    """The gap kernel against its plain version on the same inputs: the
+    same non-finite lanes, gap and z within KGAP_* (f32) or KGAP_F64_TOL,
+    each relative to 1 + its magnitude.  Returns that max |dgap|."""
+    x = args[4]
+    gk, zk = kern(*args, prior=prior)
+    gp, zp = plain(*args, prior=prior)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(gp) & torch.isfinite(zp).all(dim=1)
+    check(torch.equal(torch.isfinite(gk), torch.isfinite(gp)),
+          f"gap kernel {name}: non-finite gaps in the same lanes "
+          f"({int((~fin).sum())})")
+    dg = max_abs(((gk - gp) / (1.0 + gp.abs()))[:, None], fin)
+    dz = max_abs((zk - zp).abs() / (1.0 + zp.abs()), fin)
+    tg, tz = ((KGAP_DGAP, KGAP_DZ) if x.dtype == torch.float32
+              else (KGAP_F64_TOL, KGAP_F64_TOL))
+    print(f"  gap kernel {name}: max|dgap|/(1+|gap|) {dg:.3e}, "
+          f"max|dz|/(1+|z|) {dz:.3e}; max|gap| "
+          f"{max_abs(gp[:, None], fin):.3e}")
+    check(dg <= tg and dz <= tz, f"gap kernel {name}: |dgap|/(1+|gap|) <= "
+          f"{tg:g}, |dz|/(1+|z|) <= {tz:g}")
+    return dg
+
+
 def recon_err(L, X):
     """Per-matrix ||L L^T - X||_F / ||X||_F, in f64."""
     L64, X64 = L.double(), X.double()
@@ -508,7 +545,8 @@ def generic_core(dev, kernels, H, U, x_cert):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = kernel_counts(*kernels)
-        want = dict(none, kl_barrier_fused=int(method == "fused"))
+        want = dict(none, kl_barrier_fused=int(method == "fused"),
+                    kl_gap_fused=int(method == "fused"))
         x = s.x
         dx = float((x - x_cert[0].to(x.dtype)).abs().max())
         gap = float(kl_gap_certificate_np(x[None].cpu().numpy(), H,
@@ -518,8 +556,9 @@ def generic_core(dev, kernels, H, U, x_cert):
               f"certificate {gap:.3e}, launches {launches}")
         check(launches == want,
               f"solve({method!r}) launched "
-              + ("K3 once and nothing else" if method == "fused"
-                 else "none of K1-K4"))
+              + ("K3 once and the gap kernel once (its certificate), "
+                 "nothing else" if method == "fused"
+                 else "none of the kernels"))
         check(bool(torch.isfinite(x).all()) and dx <= GEN_DX
               and abs(gap) <= GEN_CERT and not bool(s.stalled),
               f"solve({method!r}): max|dx| <= {GEN_DX:g} against K2's "
@@ -545,7 +584,8 @@ def generic_core(dev, kernels, H, U, x_cert):
           f"median {float(sol.iters.double().median()):.0f}; stalled {nst}; "
           f"max|certificate| {np.abs(certs).max():.3e}; max|dx| vs K2 "
           f"{dx:.3e}; launches {launches}")
-    check(launches == none, "the batched BR route launched none of K1-K4")
+    check(launches == none,
+          "the batched BR route launched none of the kernels")
     check(tuple(sol.x.shape) == (B, 100) and nst == 0
           and float(np.abs(certs).max()) <= GEN_CERT and dx <= GEN_DX,
           f"batched BR: 0 stalled, every |certificate| <= {GEN_CERT:g}, "
@@ -575,7 +615,7 @@ def generic_core(dev, kernels, H, U, x_cert):
     print(f"  feasibility_batch {B} x n=100 ({int(bad.sum())} infeasible): "
           f"{wall:.3f} s; flagged {int(flagged.sum())}; launches "
           f"{launches}")
-    check(launches == none, "feasibility_batch launched none of K1-K4")
+    check(launches == none, "feasibility_batch launched none of the kernels")
     check(np.array_equal(flagged, bad)
           and np.array_equal(strict.cpu().numpy(), ~bad),
           "feasibility_batch: s_max > 0 exactly on the infeasible lanes, "
@@ -623,6 +663,7 @@ def primal_group_routes(dev, kernels, pars, main_launches,
     from cvx_tpu_torch.diagnostics import kl_gap_certificate_np
     from cvx_tpu_torch.ops.kl_barrier import (fused_n_outer,
                                               kl_barrier_fused_plain, path_of)
+    from cvx_tpu_torch.ops.kl_gap import kl_gap_fused, kl_gap_fused_plain
     f32 = dict(dtype=torch.float32, device=dev)
     primal_group = {}
     kw3 = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
@@ -642,10 +683,13 @@ def primal_group_routes(dev, kernels, pars, main_launches,
         print(f"  primal route {label} ({B_r} x n={n_r}, K3 path "
               f"{path_of(n_r, B_r, torch.float32)}): launches {launches}")
         check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
-                           "kl_barrier_fused": 1, "cholesky_batched_cuda": 0},
-              f"the primal route {label} launched K3 once and nothing else")
+                           "kl_barrier_fused": 1, "cholesky_batched_cuda": 0,
+                           "kl_gap_fused": 1},
+              f"the primal route {label} launched K3 once and the gap "
+              "kernel once (its certificate), nothing else")
         main_launches[f"kl_barrier_fused_group_{label}"] = launches[
             "kl_barrier_fused"]
+        main_launches[f"kl_gap_fused_{label}"] = launches["kl_gap_fused"]
         nst = int(rsol.stalled.sum())
         check(tuple(rsol.x.shape) == (B_r, n_r)
               and bool(torch.isfinite(rsol.x).all())
@@ -668,7 +712,11 @@ def primal_group_routes(dev, kernels, pars, main_launches,
         check(float(cert_k.max()) <= float(cert_p.max()) + K3_DGAP,
               f"primal route {label}: host f64 certificate of K3's x no "
               f"worse than the plain x's (to {K3_DGAP:g})")
-        primal_group[label] = dict(args=kargs_r, err=err, steps=steps)
+        gargs = gap_args(Hr, Ur, rsol.x)
+        primal_group[label] = dict(
+            args=kargs_r, err=err, steps=steps, gap_args=gargs,
+            gap_err=compare_gap(f"primal route {label}", gargs,
+                                kl_gap_fused, kl_gap_fused_plain))
     return primal_group
 
 
@@ -726,11 +774,11 @@ class PNorm:
 
 def check_none(kernels, what, sync):
     """Read the launch counters after a route that must launch none of
-    K1-K4."""
+    the kernels."""
     sync()
     launches = kernel_counts(*kernels)
     check(all(v == 0 for v in launches.values()),
-          f"{what} launched none of K1-K4 {launches}")
+          f"{what} launched none of the kernels {launches}")
 
 
 def fleet_routes(dev, kernels, B_screen=10000, qp_shapes=((128, 64, 4, 512),
@@ -1143,7 +1191,8 @@ def parallel_routes(dev, kernels, smi, H, U, n_gloo=4, m_shape=(4096, 128),
     sync()
     launches = kernel_counts(*kernels)
     check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 1,
-                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 0},
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 0,
+                       "kl_gap_fused": 0},
           f"(a) shard_solve(solve_certified_batch) launched K2 once, "
           f"nothing else {launches}")
     same = all(torch.equal(getattr(sol, k), getattr(local, k))
@@ -1291,8 +1340,9 @@ def main() -> int:
     from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                                            kl_dual_fused_cert_plain,
                                            kl_dual_fused_plain, path_of)
+    from cvx_tpu_torch.ops.kl_gap import kl_gap_fused, kl_gap_fused_plain
     kernels = (kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused,
-               cholesky_batched_cuda)
+               cholesky_batched_cuda, kl_gap_fused)
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -1308,13 +1358,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build: one nvcc per unit (kl_dual.cu's three entries, kl_barrier.cu,
-    # chol.cu), all started together
+    # chol.cu, kl_gap.cu), all started together
     t0 = time.perf_counter()
     libs = _build.build_all()
     for fn in _build.KL_DUAL_SIGNATURES:
         _build.load_kl_dual(fn)
     _build.load_kl_barrier()
     _build.load_chol()
+    _build.load_kl_gap()
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[p.name for p in libs]}")
 
@@ -1376,6 +1427,35 @@ def main() -> int:
                   "K3: the no-step guard holds lane 2 at x0, every x finite")
     for cname, X in k4_cases(dev):
         compare_k4(cname, X, cholesky_batched_cuda, cholesky_batched_plain)
+    # the gap kernel: K3's x of the bench case (the primal route's inputs),
+    # then dual dim 8 with equality rows and a prior (f64, n = 300, the
+    # streamed path) and dual dim 5 (f32, n = 1,000)
+    kargs3 = primal_args(H, U, feasible_points(U, 100), dev)
+    kw3 = dict(mu=PRODUCTION["mu"], n_inner=PRODUCTION["max_iter"])
+    x_primal = kl_barrier_fused(*kargs3, **kw3)
+    gap_err = compare_gap("bench 10000 x n=100 (dim 3)",
+                          gap_args(H, U, x_primal), kl_gap_fused,
+                          kl_gap_fused_plain)
+    for cname, (k_c, m_c, n_c, B_c), dtype, prior in (
+            ("k=5 m_eq=2 n=300 prior (dim 8)", (5, 2, 300, 301),
+             torch.float64, True),
+            ("k=4 n=1000 (dim 5)", (4, 0, 1000, 300), torch.float32, False)):
+        Hr, Ur, Ar, Rr = random_family(k_c, m_c, n_c, B_c, seed=k_c)
+        opts = dict(dtype=dtype, device=dev)
+        # distributions 5 % off the uniform point: a far start
+        x_c = 1.0 + 0.05 * torch.randn((B_c, n_c), generator=torch.Generator(
+            ).manual_seed(k_c), dtype=torch.float64).abs()
+        x_c = (x_c / x_c.sum(dim=1, keepdim=True)).to(**opts)
+        Ae = torch.cat([torch.ones((1, n_c), **opts),
+                        torch.tensor(Ar, **opts)]) if m_c else \
+            torch.ones((1, n_c), **opts)
+        be = torch.cat([torch.ones((B_c, 1), **opts),
+                        torch.tensor(Rr, **opts)], dim=1) if m_c else \
+            torch.ones((B_c, 1), **opts)
+        pr = (torch.linspace(0.5, 1.5, n_c, **opts) / n_c) if prior else None
+        compare_gap(cname, (torch.tensor(Hr, **opts),
+                            torch.tensor(Ur, **opts), Ae, be, x_c),
+                    kl_gap_fused, kl_gap_fused_plain, prior=pr)
     check(all(k.launches > 0 for k in kernels),
           f"launch counters {kernel_counts(*kernels)}")
 
@@ -1401,7 +1481,8 @@ def main() -> int:
     print(f"  dual path wall {dual_s:.3f} s (first calls); launches "
           f"{launches}")
     check(launches == {"kl_dual_fused": 2, "kl_dual_fused_cert": 1,
-                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 0},
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 0,
+                       "kl_gap_fused": 0},
           "the dual path launched K1 twice (fused_cert=False, solve) and "
           "K2 once (auto)")
     main_launches = dict(launches)
@@ -1478,7 +1559,7 @@ def main() -> int:
               f"dim {Hn.shape[0] + 1}): launches {launches}")
         check(launches == {"kl_dual_fused": 1, "kl_dual_fused_cert": 1,
                            "kl_barrier_fused": 0,
-                           "cholesky_batched_cuda": 0},
+                           "cholesky_batched_cuda": 0, "kl_gap_fused": 0},
               f"the group path {label} launched K2 once (auto) and K1 once "
               "(fused_cert=False)")
         main_launches[f"kl_dual_fused_group_{label}"] = launches[
@@ -1526,10 +1607,13 @@ def main() -> int:
     print(f"  primal path wall {primal_s:.3f} s (first calls); launches "
           f"{launches}")
     check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
-                       "kl_barrier_fused": 2, "cholesky_batched_cuda": 0},
+                       "kl_barrier_fused": 2, "cholesky_batched_cuda": 0,
+                       "kl_gap_fused": 2},
           "the primal path launched K3 twice (solve_jittable_batch, "
-          "solve_jittable) and nothing else")
+          "solve_jittable) and the gap kernel twice (their certificates), "
+          "nothing else")
     main_launches["kl_barrier_fused"] = launches["kl_barrier_fused"]
+    main_launches["kl_gap_fused"] = launches["kl_gap_fused"]
     gmax = float(psol.duality_gap.abs().max())
     nst = int(psol.stalled.sum())
     print(f"  fused: max|gap| {gmax:.3e}, max ineq_res "
@@ -1573,7 +1657,8 @@ def main() -> int:
     launches = kernel_counts(*kernels)
     print(f"  Cholesky path launches {launches}")
     check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
-                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 1},
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 1,
+                       "kl_gap_fused": 0},
           "cholesky_batched(method='cuda') launched K4 once")
     main_launches["cholesky_batched_cuda"] = launches["cholesky_batched_cuda"]
     check(bool(torch.isfinite(Lc).all()) and tuple(Lc.shape) == (4096, 100,
@@ -1591,7 +1676,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = kernel_counts(*kernels)
     check(launches == {"kl_dual_fused": 0, "kl_dual_fused_cert": 0,
-                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 1},
+                       "kl_barrier_fused": 0, "cholesky_batched_cuda": 1,
+                       "kl_gap_fused": 0},
           "cholesky_batched(method='cuda') at 256 x 512 (the panel path) "
           "launched K4 once")
     main_launches["cholesky_batched_cuda_panel"] = launches[
@@ -1721,6 +1807,26 @@ def main() -> int:
               f"candidates {n_cand / (B_r * steps):.4f} per step, bound "
               f"{record[key]['bound'][0]:.5f} ms  [{smi}]")
 
+    # the gap kernel at the primal route's shapes: 10,000 x n = 100 (K3's
+    # x of phase 3) and 100 x n = 10,000 (phase 4's group route), dual dim
+    # 3, 8 polish steps
+    for key, gargs, err in (
+            ("kl_gap_fused", gap_args(H, U, x_primal), gap_err),
+            ("kl_gap_fused_n10000", primal_group["n10000"]["gap_args"],
+             primal_group["n10000"]["gap_err"])):
+        best, runs = in_turns({"plain": lambda: kl_gap_fused_plain(*gargs),
+                               "kernel": lambda: kl_gap_fused(*gargs)},
+                              {"plain": 3, "kernel": 20}, order)
+        B_g, n_g = gargs[4].shape
+        out = kl_gap_fused(*gargs)
+        record[key] = dict(ms=best["kernel"], plain_ms=best["plain"],
+                           library_ms=None, err=err,
+                           bound=bound(bytes_in(*gargs) + bytes_out(*out),
+                                       ops32=kgap_ops(3, n_g, B_g, 8)))
+        print(f"  {key} {B_g} x n={n_g}, dim 3, 8 polish steps: kernel "
+              f"{runs['kernel']} ms, plain {runs['plain']} ms, bound "
+              f"{record[key]['bound'][0]:.5f} ms  [{smi}]")
+
     # the held path's shapes and the panel path's (n > 192) in each type
     chol_rows = []
     for B, n, dtype in ((4096, 100, torch.float32), (4096, 128, torch.float32),
@@ -1801,17 +1907,25 @@ def main() -> int:
             "kl_dual_fused_cert": "cvx_tpu_torch/ops/csrc/kl_dual.cu",
             "kl_barrier_fused": "cvx_tpu_torch/ops/csrc/kl_barrier.cu",
             "cholesky_batched_cuda": "cvx_tpu_torch/ops/csrc/chol.cu",
-            "cholesky_batched_cuda_panel": "cvx_tpu_torch/ops/csrc/chol.cu"}
+            "cholesky_batched_cuda_panel": "cvx_tpu_torch/ops/csrc/chol.cu",
+            "kl_gap_fused": "cvx_tpu_torch/ops/csrc/kl_gap.cu",
+            "kl_gap_fused_n10000": "cvx_tpu_torch/ops/csrc/kl_gap.cu"}
     replaces = {"kl_dual_fused": "cvx_tpu/ops/pallas_kl_dual.py:953",
                 "kl_dual_fused_cert": "cvx_tpu/ops/pallas_kl_dual.py:836",
                 "kl_barrier_fused": "cvx_tpu/ops/pallas_kl.py:295",
                 "cholesky_batched_cuda": "cvx_tpu/ops/pallas_chol.py:139",
                 "cholesky_batched_cuda_panel":
-                    "cvx_tpu/ops/pallas_chol.py:139"}
+                    "cvx_tpu/ops/pallas_chol.py:139",
+                # the reference's kl_dual_gap is plain JAX, fused by XLA
+                "kl_gap_fused": "none (cvx_tpu/models/dist_kl.py kl_dual_gap)",
+                "kl_gap_fused_n10000":
+                    "none (cvx_tpu/models/dist_kl.py kl_dual_gap)"}
     errs = {"kl_dual_fused": k1_err, "kl_dual_fused_cert": k2_err,
             "kl_barrier_fused": k3_err, "cholesky_batched_cuda": k4_err,
             "cholesky_batched_cuda_panel": k4p_err}
     for key, rec in record.items():
+        if key.startswith("kl_gap_fused"):
+            errs[key] = rec["err"]
         if "_group_" in key:
             base = key.split("_group_")[0]
             srcs[key], replaces[key] = srcs[base], replaces[base]

@@ -40,6 +40,12 @@ CERT_GAP = 1e-8    # the reference's certified contract (tolSolver)
 # sums run in another order (f32 ~1e-6 at condition ~1e3), f64 rounding
 K4_TOL, K4_F64_TOL = 2e-5, 1e-12
 PRIMAL_CERT = 1e-4   # host f64 certificate of the primal slice's f32 x
+# the gap kernel (kl_gap_fused) against its plain version: the gap and z,
+# each as max |d| / (1 + |value|), in f32 a tenth of the primal cell's
+# gap_err and dual_err limits at its converged lanes (|gap| << 1; the
+# kernel's sums pair terms in another order, the final two in f64); f64
+# both to 1e-11
+KGAP_DGAP, KGAP_DZ, KGAP_F64_TOL = 3e-6, 6e-5, 1e-11
 PRODUCTION = dict(max_iter=3, mu=55.0, tol=1e-8)   # bench.py's schedule
 TOL_FEAS = 1e-7    # the QP family's residual contract (tol_feas)
 
@@ -190,6 +196,22 @@ def k3_ops(k, n, B, n_steps, n_cand):
     the step bound (8 + 2k), the update (2); per candidate 7 and a log."""
     per_step = 31 + 16 * k + k * (k + 1) + 1
     return n * (B * n_steps * per_step + 8 * n_cand)
+
+
+def kgap_ops(dim, n, B, steps):
+    """The gap kernel's operations for B instances of n coordinates at
+    dual dim ``dim`` (``kl_gap_fused_plain``'s arithmetic).  Per
+    coordinate: the fit (a log, the stationarity term, its dim products
+    and the dim(dim + 1)/2 of BB', the primal term: 2 dim + dim(dim + 1)
+    + 6); per polish step the point's pass (B'z, an exp, the value, the
+    gradient and the Hessian: 4 dim + dim(dim + 1) + 3) and 9 candidates'
+    (B'z, an exp, the value and the gradient: 4 dim + 3 each); the final
+    value (2 dim + 3)."""
+    tri = dim * (dim + 1)
+    per = (2 * dim + tri + 6 + steps * (4 * dim + tri + 3
+                                        + 9 * (4 * dim + 3))
+           + 2 * dim + 3)
+    return B * n * per
 
 
 # ------------------------------------------------ kernel against plain

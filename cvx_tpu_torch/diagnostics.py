@@ -15,8 +15,10 @@ debugLevel dumps, SURVEY.md sections 5.1/5.5):
     ``cvx.route.fused_solution`` (the Solution a route assembles),
     ``cvx.cert.kl_dual_gap``, ``cvx.cert.polish_dual`` and
     ``cvx.cert.kl_certify`` (the certificates), ``cvx.kernel.<wrapper>``
-    for ``kl_dual_fused``, ``kl_dual_fused_cert``, ``kl_barrier_fused`` and
-    ``cholesky_batched_cuda`` (CPU path too), ``cvx.kernel.launch`` (the
+    for ``kl_dual_fused``, ``kl_dual_fused_cert``, ``kl_barrier_fused``,
+    ``kl_gap_fused`` and ``cholesky_batched_cuda`` (CPU path too; on the
+    card ``cvx.cert.polish_dual`` is inside ``kl_dual_gap`` only where it
+    takes the torch chain), ``cvx.kernel.launch`` (the
     launch of a built kernel) and ``cvx.build.load`` (a kernel library's
     first use: build or load);
   * ``counters()``: the program's counters in one dict;
@@ -42,7 +44,9 @@ from ._spans import span
 from .ops import _build
 from .ops.chol import cholesky_batched_cuda
 from .ops.kl_barrier import kl_barrier_fused
+from .models.dist_kl import kl_dual_gap
 from .ops.kl_dual import kl_dual_fused, kl_dual_fused_cert
+from .ops.kl_gap import kl_gap_fused
 from .problem.constraint_set import ConstraintSet
 from .solvers.barrier import barrier_solve
 from .solvers.types import SolverParams
@@ -71,13 +75,16 @@ def trace(log_dir: str | None = None):
 
 def counters() -> dict:
     """The program's counters since the process started: each kernel
-    wrapper's launches (its ``.launches``), ``nvcc_runs`` (unit -> nvcc
-    runs), ``kernel_loads`` and ``kernel_load_s`` (kernel libraries built
-    or loaded at first use, and the host seconds that took)."""
+    wrapper's launches (its ``.launches``), ``kl_dual_gap_chain_calls``
+    (CUDA calls of ``kl_dual_gap`` that ran the torch chain, not
+    ``kl_gap_fused``'s kernel), ``nvcc_runs`` (unit -> nvcc runs),
+    ``kernel_loads`` and ``kernel_load_s`` (kernel libraries built or
+    loaded at first use, and the host seconds that took)."""
     out = {f.__name__: f.launches for f in (
-        kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused,
+        kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused, kl_gap_fused,
         cholesky_batched_cuda)}
-    out.update(nvcc_runs=dict(_build.nvcc_runs),
+    out.update(kl_dual_gap_chain_calls=kl_dual_gap.chain_calls,
+               nvcc_runs=dict(_build.nvcc_runs),
                kernel_loads=_build.kernel_loads,
                kernel_load_s=_build.kernel_load_s)
     return out

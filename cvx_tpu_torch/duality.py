@@ -94,6 +94,13 @@ def _small_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                          upper=True)[..., 0]
 
 
+def _value_band(eps: float, value_band_eps: float | None) -> float:
+    """The polish's noise band of the value, relative to 1 + |f|: 32 eps,
+    or ``value_band_eps`` where that is wider."""
+    return (32.0 * eps if value_band_eps is None
+            else max(32.0 * eps, float(value_band_eps)))
+
+
 @span("cvx.cert.polish_dual")
 def _polish_dual(obj, z: torch.Tensor, num_ineq: int, steps: int,
                  value_band_eps: float | None = None) -> torch.Tensor:
@@ -113,8 +120,7 @@ def _polish_dual(obj, z: torch.Tensor, num_ineq: int, steps: int,
     mask = torch.arange(dim, device=dev) < num_ineq
     ts = 0.5 ** torch.arange(8, device=dev).to(dtype)
     eps = torch.finfo(dtype).eps
-    band_eps = (32.0 * eps if value_band_eps is None
-                else max(32.0 * eps, float(value_band_eps)))
+    band_eps = _value_band(eps, value_band_eps)
     eye = torch.eye(dim, dtype=dtype, device=dev)
 
     def project(z_):

@@ -32,7 +32,6 @@ shared rows, the written-out batch axis of the reference's
 
 from __future__ import annotations
 
-import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -45,6 +44,8 @@ from ..ops.kl_barrier import fused_final_t, fused_n_outer, kl_barrier_fused
 from ..ops.kl_dual import (_FUSED_MAX_DIM, _certify_f64, _Ctx, _polish_f64,
                            _residuals, _solve_small, kl_dual_fused,
                            kl_dual_fused_cert)
+from ..ops.kl_gap import (_NegDualObjective, _prior_terms, kl_gap_fused,
+                          kl_gap_fused_plain, route_of)
 from ..problem.constraint_set import ConstraintSet
 from ..problem.constraints import LinearBlock, positivity, rows_leq
 from ..problem.equality import EqualityConstraint, sum_to_one
@@ -57,17 +58,6 @@ from ..solvers.types import Solution, SolverParams
 from ..tree import exact_f32, instance
 
 _DUAL = ("dual", "dual_BR", "dual_PD")
-
-
-def _prior_terms(prior, n, dtype, device=None):
-    """(log p, R = p/e) for an optional shared prior (None = the
-    reference's uniform).  The one place the conversion lives."""
-    if prior is None:
-        return (torch.tensor(-math.log(float(n)), dtype=dtype, device=device),
-                torch.full((n,), 1.0 / (n * np.e), dtype=dtype,
-                           device=device))
-    p = prior.to(dtype)
-    return torch.log(p), p / np.e
 
 
 @dataclass
@@ -102,39 +92,6 @@ class KLObjective:
         return self
 
 
-@dataclass
-class _NegDualObjective:
-    """-L*(z) = w.z + R.exp(-B'z) (convex).  ``w`` is (dim,) for one
-    instance or (Bt, dim) per instance, against points z (Bt, ..., dim)."""
-
-    B: torch.Tensor   # (mI + 1 + mE, n), shared
-    w: torch.Tensor   # (mI + 1 + mE,) or (Bt, mI + 1 + mE)
-    R: torch.Tensor   # (n,)
-
-    def take(self, idx):
-        """The dual objective of instances ``idx``."""
-        return dataclasses.replace(self, w=self.w if self.w.dim() == 1
-                                   else self.w[idx])
-
-    def _w(self, z):
-        if self.w.dim() == 1:
-            return self.w
-        return self.w.reshape(self.w.shape[0], *([1] * (z.dim() - 2)),
-                              self.w.shape[1])
-
-    def _y(self, z):
-        return self.R * torch.exp(-(z @ self.B))
-
-    def value(self, z):
-        return (self._w(z) * z).sum(dim=-1) + self._y(z).sum(dim=-1)
-
-    def grad(self, z):
-        return self._w(z) - self._y(z) @ self.B.T
-
-    def hess(self, z):
-        return (self.B * self._y(z)[..., None, :]) @ self.B.T
-
-
 @span("cvx.cert.kl_dual_gap")
 def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8,
                 value_band_eps: float | None = None, prior=None):
@@ -150,30 +107,26 @@ def kl_dual_gap(H, u, A, b, x, polish_steps: int = 8,
     stationarity condition log x - log p + 1 + B'z = 0 (lam >= 0) and is
     sharpened by ``polish_steps`` projected-Newton steps on -g.  Returns
     ``(gap (B,), z (B, k + p))``.
+
+    ``ops.kl_gap.route_of`` picks the computation: a CUDA call the
+    kernel does not take (dual dim k + p above 8, or neither f32 nor f64)
+    runs the plain version's torch ops, counted in
+    ``kl_dual_gap.chain_calls``; every other call ``kl_gap_fused`` (the
+    kernel on CUDA, the plain version elsewhere) with the rows cast to
+    x's dtype.
     """
+    kw = dict(polish_steps=polish_steps, value_band_eps=value_band_eps)
+    if route_of(x.device, x.dtype, H.shape[0] + A.shape[0]) == "chain":
+        kl_dual_gap.chain_calls += 1
+        return kl_gap_fused_plain(H, u, A, b, x, prior=prior, **kw)
     dtype = x.dtype
-    n = x.shape[-1]
-    # a coordinate that underflowed to 0 would poison the fit with log 0
-    x = torch.clamp_min(x, 1e-30)
-    k = H.shape[0]
-    Bm = torch.cat([H, A], dim=0).to(dtype)
-    w = torch.cat([u, b], dim=1).to(dtype)
-    logp, R = _prior_terms(prior, n, dtype, x.device)
-    dim = Bm.shape[0]
-    c = -(1.0 + torch.log(x) - logp)
-    BBt = Bm @ Bm.T
-    ridge = (10 * torch.finfo(dtype).eps
-             * torch.abs(torch.diagonal(BBt)).mean())
-    BBt = BBt + ridge * torch.eye(dim, dtype=dtype, device=x.device)
-    z = _small_solve(BBt.expand(x.shape[0], dim, dim), c @ Bm.T)
-    mask = torch.arange(dim, device=x.device) < k
-    z = torch.where(mask, torch.clamp_min(z, 0.0), z)
-    neg_dual = _NegDualObjective(B=Bm, w=w, R=R)
-    z = _polish_dual(neg_dual, z, num_ineq=k, steps=polish_steps,
-                     value_band_eps=value_band_eps)
-    dual_val = -neg_dual.value(z)
-    primal_val = (x * (torch.log(x) - logp)).sum(dim=-1)
-    return primal_val - dual_val, z
+    H, A, x = (t.to(dtype).contiguous() for t in (H, A, x))
+    u, b = u.to(dtype), b.to(dtype)
+    prior = None if prior is None else prior.to(dtype)
+    return kl_gap_fused(H, u, A, b, x, prior=prior, **kw)
+
+
+kl_dual_gap.chain_calls = 0
 
 
 def _dense_solve(m, gf, dim):

@@ -30,6 +30,7 @@ from .kl_barrier import (fused_final_t, fused_n_outer, kl_barrier_fused,
                          kl_barrier_fused_plain)
 from .kl_dual import (kl_dual_fused, kl_dual_fused_cert,
                       kl_dual_fused_cert_plain, kl_dual_fused_plain)
+from .kl_gap import kl_gap_fused, kl_gap_fused_plain
 from .nullspace import SolutionSpace, solution_space
 from .reduction import (UnsolvableSystemError, free_coordinates,
                         pad_solution, reduce_kkt)
@@ -46,7 +47,8 @@ __all__ = ["SolutionSpace", "UnsolvableSystemError", "apply_equilibration",
            "default_delta", "forward_solve", "fused_final_t",
            "fused_n_outer", "hs_norm", "kkt_solve", "kl_barrier_fused",
            "kl_barrier_fused_plain", "kl_dual_fused", "kl_dual_fused_cert",
-           "kl_dual_fused_cert_plain", "kl_dual_fused_plain", "lin_solve",
+           "kl_dual_fused_cert_plain", "kl_dual_fused_plain",
+           "kl_gap_fused", "kl_gap_fused_plain", "lin_solve",
            "regularized_cholesky", "relative_residual", "ruiz_equilibrate",
            "ruiz_equilibrate0",
            "solution_space", "svd_solve", "sym_solve", "sym_solve_eig",

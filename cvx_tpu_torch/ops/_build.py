@@ -43,7 +43,8 @@ UNITS = {"kl_dual_cert": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=3",)),
          "kl_dual_f64": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=2",)),
          "kl_dual_f32": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=1",)),
          "kl_barrier": ("kl_barrier.cu", ()),
-         "chol": ("chol.cu", ())}
+         "chol": ("chol.cu", ()),
+         "kl_gap": ("kl_gap.cu", ())}
 
 _libs: dict[str, ctypes.CDLL] = {}
 nvcc_runs: dict[str, int] = {}
@@ -167,6 +168,15 @@ def load_kl_barrier() -> ctypes.CDLL:
     return _load("kl_barrier", {"kl_barrier_fused_f32": sig,
                                    "kl_barrier_fused_f64": sig},
                  "kl_barrier_error_string")
+
+
+def load_kl_gap() -> ctypes.CDLL:
+    """The certificate's library (``csrc/kl_gap.cu``), built on first
+    call."""
+    sig = ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P, _I64]
+           + [_P] * 2 + [_F64] * 2 + [_P] * 2 + [_I32] * 5 + [_F64, _P])
+    return _load("kl_gap", {"kl_gap_fused_f32": sig, "kl_gap_fused_f64": sig},
+                 "kl_gap_error_string")
 
 
 def load_chol() -> ctypes.CDLL:

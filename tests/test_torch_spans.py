@@ -49,11 +49,12 @@ ROUTES = {
                ["cvx.entry.solve_jittable_batch",
                 "cvx.kernel.kl_barrier_fused",
                 "cvx.route.fused_solution", "cvx.cert.kl_dual_gap",
-                "cvx.cert.polish_dual"]),
+                "cvx.kernel.kl_gap_fused", "cvx.cert.polish_dual"]),
 }
 # (inner, outer): each inner span lies inside its outer one
 NESTED = [("cvx.cert.kl_dual_gap", "cvx.route.fused_solution"),
-          ("cvx.cert.polish_dual", "cvx.cert.kl_dual_gap")]
+          ("cvx.kernel.kl_gap_fused", "cvx.cert.kl_dual_gap"),
+          ("cvx.cert.polish_dual", "cvx.kernel.kl_gap_fused")]
 
 
 def _spans_of(prof):
@@ -128,7 +129,8 @@ def test_trace_shows_the_spans(tmp_path):
 def test_counters_and_a_cpu_solve_moves_none():
     before = diagnostics.counters()
     assert set(before) == {"kl_dual_fused", "kl_dual_fused_cert",
-                           "kl_barrier_fused", "cholesky_batched_cuda",
+                           "kl_barrier_fused", "kl_gap_fused",
+                           "cholesky_batched_cuda", "kl_dual_gap_chain_calls",
                            "nvcc_runs", "kernel_loads", "kernel_load_s"}
     model = _model()
     for call, _ in ROUTES.values():
