@@ -3,24 +3,44 @@
     python3 benchmark/calibrate.py --workload <name> --seeds 1,2,3 \\
         --control-seeds 7,8,9 --seconds 2 [--out FILE]
 
-For each seed it makes the cell's inputs, warms the route, runs a short
-closed-loop window as a run does (the same sampled calls) and prints the
-judge's numbers of the program; for each control seed it puts the
-reference, in the precision the mix names as its control, in the program's
-place and prints the same numbers, and the f64 certificate of the
-reference's own optimum (how far the reference is from exact).  One JSON
-line per reading; with ``--out`` also appended to FILE.  Not part of a
-run.  Exits 1 when there is no CUDA device.
+For each seed it runs the cell as ``run.py`` does (``harness.run_cell``:
+its ranks, set-up, a closed-loop window of ``--seconds``, the same sampled
+calls) and prints the family's numbers of the program; for each control
+seed it makes the cell's inputs, puts the reference, in the precision the
+mix names as its control, in the program's place and prints the same
+numbers, with the largest ``reference_certificate`` of the reference's own
+answer where the family gives one (how far the reference is from exact).
+One JSON line per reading; with ``--out`` also appended to FILE.  Not part
+of a run.  Exits 1 when there is no CUDA device or fewer than the cell
+asks for.
 """
 
 import argparse
 import json
-import random
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def control_numbers(cell, seed, device):
+    """The family's numbers of the control on the inputs of ``seed``, and
+    the largest certificate of the reference's answers (None where the
+    family gives none)."""
+    from benchmark.reference import judge
+
+    fam, mix = cell.family, cell.mix
+    H, pool = fam.make_inputs(cell.config, mix, seed, device)
+    certify = getattr(fam, "reference_certificate", None)
+    numbers, cert = None, None
+    for batch in pool:
+        ref = fam.reference(H, batch)
+        numbers = judge.merge(numbers, fam.compare(
+            H, batch, fam.control(H, batch, mix, mix["control"]), ref, mix))
+        if certify:
+            cert = max(cert or 0.0, certify(H, batch, ref))
+    return numbers, cert
 
 
 def main(argv=None):
@@ -35,15 +55,17 @@ def main(argv=None):
     import torch
 
     from benchmark import harness, spec
-    from benchmark.reference import judge
-    from benchmark.reference.certificate import kl_gap_certificate
 
     cell = spec.load(args.workload)
     if not torch.cuda.is_available():
         print("no CUDA device: nothing was read", file=sys.stderr)
         return 1
+    if torch.cuda.device_count() < cell.chips:
+        print(f"{cell.name} needs {cell.chips} cards, this machine has "
+              f"{torch.cuda.device_count()}: nothing was read",
+              file=sys.stderr)
+        return 1
     device = torch.device("cuda", 0)
-    fam, mix, config = cell.family, cell.mix, cell.config
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def emit(row):
@@ -57,35 +79,15 @@ def main(argv=None):
         return [int(s) for s in text.split(",") if s]
 
     for seed in seeds(args.seeds):
-        H, pool = fam.make_inputs(config, mix, seed, device)
-        model = fam.make_model(config, H)
-
-        def call(b):
-            return fam.outputs(fam.call(model, mix, pool[b]))
-
-        for b in range(len(pool)):
-            call(b)
-        window = harness.closed_loop(call, pool, args.seconds, device,
-                                     mix["sample_calls"],
-                                     random.Random(seed))
-        numbers = harness.compare(fam, H, pool, window.kept, mix)
+        r = harness.run_cell(cell, seed, args.seconds, False, device,
+                             time.perf_counter())
         emit({"workload": cell.name, "side": "program", "seed": seed,
-              "calls": window.calls, "failed": window.failed, **numbers})
-        del model, call, window
+              "attempted": r.attempted, "failed": r.failed, **r.numbers})
 
     for seed in seeds(args.control_seeds):
-        H, pool = fam.make_inputs(config, mix, seed, device)
-        numbers, cert = None, 0.0
         t0 = time.perf_counter()
-        for batch in pool:
-            ref = fam.reference(H, batch)
-            numbers = judge.merge(numbers, judge.compare(
-                H, batch["u"], fam.control(H, batch, mix, mix["control"]),
-                ref, mix["contract"]))
-            c = kl_gap_certificate(ref["x"].cpu().numpy(), H.cpu().numpy(),
-                                   batch["u"].double().cpu().numpy())
-            cert = max(cert, float(abs(c).max()))
-        emit({"workload": cell.name, "side": f"control {mix['control']}",
+        numbers, cert = control_numbers(cell, seed, device)
+        emit({"workload": cell.name, "side": f"control {cell.mix['control']}",
               "seed": seed, "reference_cert_max": cert,
               "reference_and_control_s": time.perf_counter() - t0,
               **numbers})

@@ -12,11 +12,16 @@ from a ``torch.Generator`` instead of NumPy.
 
 The program is reached only through ``make_model``, ``call`` and
 ``counters``; everything else is the benchmark's own.
+
+``compare`` returns ``x_err``, ``obj_err``, ``gap_err``, ``dual_err``,
+``res_err`` (floats, the worst over a batch) and ``stall_diff`` (a count):
+``reference.kl_projection.compare`` says what each is.
 """
 
 import torch
 
 from ..reference import kl_projection
+from ..reference.certificate import kl_gap_certificate
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -95,22 +100,29 @@ def outputs(sol):
                 ineq=sol.ineq_res, eq=sol.eq_gap, stalled=sol.stalled)
 
 
+def failed(out):
+    """The call's instances that failed: those it flagged as stalled."""
+    return out["stalled"]
+
+
 def counters():
     """The program's launch counters, by kernel wrapper."""
     from cvx_tpu_torch.ops.chol import cholesky_batched_cuda
     from cvx_tpu_torch.ops.kl_barrier import kl_barrier_fused
     from cvx_tpu_torch.ops.kl_dual import kl_dual_fused, kl_dual_fused_cert
+    from cvx_tpu_torch.ops.kl_gap import kl_gap_fused
 
     return {f.__name__: f.launches for f in (
         kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused,
-        cholesky_batched_cuda)}
+        cholesky_batched_cuda, kl_gap_fused)}
 
 
 # the device kernels each counter counts, by a part of their names
 KERNEL_NAMES = {"kl_dual_fused": ("kl_dual_kernel", "kl_dual_group_kernel"),
                 "kl_dual_fused_cert": ("kl_dual_cert",),
                 "kl_barrier_fused": ("kl_barrier",),
-                "cholesky_batched_cuda": ("chol_held", "chol_panel")}
+                "cholesky_batched_cuda": ("chol_held", "chol_panel"),
+                "kl_gap_fused": ("kl_gap_polish",)}
 
 
 def reference(H, batch):
@@ -118,6 +130,19 @@ def reference(H, batch):
     return kl_projection.solve(H, batch["u"])
 
 
+def compare(H, batch, out, ref, mix):
+    """The numbers of one batch's outputs against its reference."""
+    return kl_projection.compare(H, batch["u"], out, ref, mix["contract"])
+
+
 def control(H, batch, mix, precision):
     """The reference in the program's place, in ``precision``."""
     return kl_projection.control(H, batch["u"], mix["contract"], precision)
+
+
+def reference_certificate(H, batch, ref):
+    """The frozen f64 certificate's largest |gap| at the reference's own
+    optimum: how far the reference is from exact."""
+    c = kl_gap_certificate(ref["x"].cpu().numpy(), H.cpu().numpy(),
+                           batch["u"].double().cpu().numpy())
+    return float(abs(c).max())

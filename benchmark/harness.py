@@ -6,13 +6,18 @@ pool, and ends in ``synchronize()`` before the next is issued.  For each
 call the harness records a pair of CUDA events around it (the stream is
 empty when the first is recorded, so the pair spans the call from its
 issue to its last kernel on the device's clock) and, as a witness, the
-host clock from the call to the return of ``synchronize()``; it keeps its
-``stalled`` flags (added up on the device every ``TALLY`` calls and read
-once after the window), and keeps a sample of the calls' outputs, drawn
-from the seed, for the comparison.  Nothing is compiled or built inside
-the window: the set-up warms every batch of the pool, and moves what it
-made out of the garbage collector's sight (``gc.freeze``), so that a full
-collection in the window does not walk the libraries' objects.
+host clock from the call to the return of ``synchronize()``; it keeps the
+family's failure flags (added up on the device every ``TALLY`` calls and
+read once after the window), and keeps a sample of the calls' outputs,
+drawn from the seed, for the comparison.  Nothing is compiled or built
+inside the window: the set-up warms every batch of the pool, and moves
+what it made out of the garbage collector's sight (``gc.freeze``), so that
+a full collection in the window does not walk the libraries' objects.
+
+A cell whose ``chips`` R is above 1 runs on R ranks (``ranks.py``): this
+process is rank 0, it starts the others, and each step of the program here
+is first announced to them, so that they take it too.  With R = 1 nothing
+of that runs: no process, no group, no message.
 """
 
 import gc
@@ -20,11 +25,12 @@ import random
 import statistics
 import sys
 import time
+import traceback
 from types import SimpleNamespace
 
 import torch
 
-from . import spec, stats, trace
+from . import ranks, spec, stats, trace
 from .reference import judge
 
 TALLY = 256
@@ -35,10 +41,11 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def closed_loop(call, pool, seconds, device, keep, rng):
+def closed_loop(call, pool, seconds, device, keep, rng, failed):
     """Calls ``call(i)`` on batch i of the pool, cycling, until ``seconds``
     have passed; returns the window's record.  ``keep`` calls are sampled
-    uniformly from all calls (reservoir) for the comparison."""
+    uniformly from all calls (reservoir) for the comparison; ``failed(out)``
+    gives a call's failure flags."""
     cuda = device.type == "cuda"
     ev0, ev1 = ((torch.cuda.Event(enable_timing=True),
                  torch.cuda.Event(enable_timing=True)) if cuda
@@ -59,7 +66,7 @@ def closed_loop(call, pool, seconds, device, keep, rng):
         host_ms.append((t_done - t_call) * 1e3)
         if cuda:
             latencies.append(ev0.elapsed_time(ev1))
-        flags.append(out["stalled"])
+        flags.append(failed(out))
         if len(flags) == TALLY:
             tallies.append(torch.stack(flags).sum())
             flags = []
@@ -85,17 +92,96 @@ def _tenths(values):
     return [values[i:i + step] for i in range(0, len(values), step)][:10]
 
 
+class Program:
+    """The family's program as the harness drives it.  ``make()`` makes a
+    model and returns its ``call(b)`` on batch b of the pool; ``agree(b)``
+    calls the first model once more.  With a ``ranks.Leader`` each step is
+    first announced to the followers, which take it too."""
+
+    def __init__(self, fam, cell, H, pool, leader):
+        self.fam, self.config, self.mix = fam, cell.config, cell.mix
+        self.H, self.pool, self.leader = H, pool, leader
+        self.models = []
+
+    def make(self):
+        kwargs = {}
+        if self.leader:
+            self.leader.step(ranks.MODEL)
+            kwargs["world"] = self.leader.world
+        self.models.append(self.fam.make_model(self.config, self.H,
+                                               **kwargs))
+        k = len(self.models) - 1
+        return lambda b: self.call(k, b)
+
+    def call(self, k, b):
+        if self.leader:
+            self.leader.step(ranks.CALL, k, b)
+        return self.fam.call(self.models[k], self.mix, self.pool[b])
+
+    def agree(self, b, sync):
+        """The largest difference of any rank's outputs on batch b from
+        rank 0's."""
+        self.leader.step(ranks.AGREE, 0, b)
+        out = self.fam.outputs(self.fam.call(self.models[0], self.mix,
+                                             self.pool[b]))
+        sync()
+        return self.leader.spread(out)
+
+
 def run_cell(cell, seed, seconds, traced, device, t_start, log=sys.stderr):
     """One run: set-up from ``t_start`` (the process's start), the window
     of ``seconds``, with ``traced`` the traced slices and the per-layer
-    metrics (else the end-to-end ones), then the comparison."""
+    metrics (else the end-to-end ones), then the comparison.
+
+    The cell's family (``families/<name>.py``) provides
+
+    * ``make_inputs(config, mix, seed, device)`` -> (H, pool): what every
+      call shares (a tensor, or dicts and lists of them) and a list of
+      batches, each a dict of tensors, made on the device from the seed;
+    * ``make_model(config, H)``: the program's model, built through the
+      program; where the cell takes several ranks it is called with
+      ``world=`` a ``ranks.World`` (rank, size, device, group) as well;
+    * ``call(model, mix, batch)``: one call of the program;
+    * ``outputs(result)``: what ``compare`` judges of a call's result, a
+      dict of tensors;
+    * ``failed(out)``: the call's failure flags, one bool a returned
+      instance (counted in ``failed``);
+    * ``reference(H, batch)``: the plain reference's answer for a batch;
+    * ``compare(H, batch, out, ref, mix)``: the numbers by name, each a
+      float (the worst over the batch) or an int (a count), that the
+      cell's limits hold; the family's docstring lists them;
+    * ``control(H, batch, mix, precision)``: the reference in the
+      program's place, one precision down (``calibrate.py``, the tests);
+    * optional: ``counters()``, the program's counters read around a traced
+      slice (none without it), ``KERNEL_NAMES`` for the metrics that read
+      them, and ``reference_certificate(H, batch, ref)`` for
+      ``calibrate.py``.
+
+    ``config["batch"]`` counts the instances one call returns: 1 for a
+    single program.  With several ranks the judged numbers gain
+    ``rank_diff``."""
+    leader = ranks.Leader(cell, device, log) if cell.chips > 1 else None
+    try:
+        return _run(cell, seed, seconds, traced, device, t_start, log, leader)
+    except BaseException:
+        if leader is None:
+            raise
+        traceback.print_exc()
+        leader.fail("rank 0 raised")
+
+
+def _run(cell, seed, seconds, traced, device, t_start, log, leader):
     fam, mix, config = cell.family, cell.mix, cell.config
     B = config["batch"]
     H, pool = fam.make_inputs(config, mix, seed, device)
-    model = fam.make_model(config, H)
+    if leader:
+        leader.connect()
+        leader.share((H, pool))
+    program = Program(fam, cell, H, pool, leader)
+    raw = program.make()
 
     def call(b):
-        return fam.outputs(fam.call(model, mix, pool[b]))
+        return fam.outputs(raw(b))
 
     for _ in range(mix["warm_rounds"]):
         for b in range(len(pool)):
@@ -110,10 +196,9 @@ def run_cell(cell, seed, seconds, traced, device, t_start, log=sys.stderr):
           file=log)
 
     window = closed_loop(call, pool, seconds, device, mix["sample_calls"],
-                         random.Random(seed))
+                         random.Random(seed), fam.failed)
     gc.unfreeze()
-    peak = (torch.cuda.max_memory_allocated(device) if device.type == "cuda"
-            else 0)
+    peak = leader.peak() if leader else ranks.peak_bytes(device)
     print(f"window: {window.calls} calls of {B} instances in "
           f"{window.wall_s:.6f} s; failed {window.failed}", file=log)
     if window.latencies_ms:
@@ -133,21 +218,24 @@ def run_cell(cell, seed, seconds, traced, device, t_start, log=sys.stderr):
                                             window.latencies_ms)), 95)),
               file=log)
 
+    def sync():
+        _sync(device)
+
     run = SimpleNamespace(cell=cell, B=B, H=H, pool=pool,
                           setup_s=setup_s, window=window, trace=None,
-                          log=log)
+                          log=log, device=device, program=program, sync=sync)
     breakdown = None
     if traced:
-        if device.type == "cuda":
+        acts = trace.device_activities(device)
+        if acts:
             run.trace = trace.device_slice(call, mix["trace_calls"],
-                                           len(pool),
-                                           lambda: _sync(device),
-                                           fam.counters)
+                                           len(pool), sync,
+                                           getattr(fam, "counters", dict),
+                                           acts)
             breakdown = {
                 "device_ops": trace.top_ops(run.trace.ops),
                 "idle_gaps": trace.host_slice(call, mix["breakdown_calls"],
-                                              len(pool),
-                                              lambda: _sync(device))}
+                                              len(pool), sync, acts)}
         else:
             run.trace = trace.Slice(calls=0, window_s=0.0, ops=[])
     metrics = {}
@@ -159,14 +247,20 @@ def run_cell(cell, seed, seconds, traced, device, t_start, log=sys.stderr):
     busy = run.trace.busy_s() if run.trace else None
     window_s = run.trace.window_s if run.trace else None
     attempted, failed = window.calls * B, window.failed
+    rank_diff = None
+    if leader:
+        rank_diff = max(program.agree(b, sync) for b in range(len(pool)))
+        leader.stop()
 
     # the program's state goes before the reference runs on the card
     kept = window.kept
-    del model, call, run, window
+    del program, raw, call, run, window
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     numbers = compare(fam, H, pool, kept, mix)
+    if rank_diff is not None:
+        numbers["rank_diff"] = rank_diff
     correct, rows = judge.decide(numbers, cell.limits)
     return SimpleNamespace(correct=correct, attempted=attempted,
                            failed=failed, metrics=metrics, peak=peak,
@@ -175,12 +269,12 @@ def run_cell(cell, seed, seconds, traced, device, t_start, log=sys.stderr):
 
 
 def compare(fam, H, pool, kept, mix):
-    """The judge's numbers over the sampled calls, each against the
+    """The family's numbers over the sampled calls, each against the
     reference of its batch (solved once per batch)."""
     refs, numbers = {}, None
     for b, out in kept:
         if b not in refs:
             refs[b] = fam.reference(H, pool[b])
-        numbers = judge.merge(numbers, judge.compare(
-            H, pool[b]["u"], out, refs[b], mix["contract"]))
+        numbers = judge.merge(numbers, fam.compare(H, pool[b], out, refs[b],
+                                                   mix))
     return numbers

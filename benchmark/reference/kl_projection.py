@@ -161,3 +161,50 @@ def control(H, u, contract, precision):
     return dict(x=s["x"], gap=m["gap"], lam=s["lam"], nu=s["nu"],
                 ineq=m["ineq"], eq=m["eq"],
                 stalled=stalled(s["x"], m, contract))
+
+
+# the numbers of the comparison that decides ``correct`` in a KL cell
+NUMBERS = ("x_err", "obj_err", "gap_err", "dual_err", "res_err",
+           "stall_diff")
+
+
+def _worst(t):
+    t = torch.nan_to_num(t.to(torch.float64), nan=math.inf)
+    return float(t.max()) if t.numel() else 0.0
+
+
+def compare(H, u, out, ref, contract):
+    """The numbers for one batch, each the worst over its instances.
+    ``out``: the route's x (B, n), gap, lam (B, >= k; the first k are the
+    rows' multipliers), nu (B, >= 1; the first is the sum-to-one row's),
+    ineq, eq and stalled; ``ref``: ``solve`` in f64 on the same H and u.
+
+    * ``x_err``: max |x - x*|.
+    * ``obj_err``: max |f(x) - p*|, f measured in f64 at the returned x.
+    * ``gap_err``: max |reported gap - the gap measured in f64 at the
+      returned (x, lam, nu)|: the certificate the route reports is the one
+      it earned.
+    * ``dual_err``: max over lam and nu of |z - z*| / (1 + |z*|).
+    * ``res_err``: max |reported residual - the residual measured in f64|,
+      over the inequality and the equality residual.
+    * ``stall_diff``: instances whose ``stalled`` flag differs from the
+      route's contract applied to the f64 measurement (an exact count).
+
+    A non-finite number reads +inf."""
+    f64 = torch.float64
+    k = H.shape[0]
+    x = out["x"].to(f64)
+    lam, nu = out["lam"][:, :k].to(f64), out["nu"][:, 0].to(f64)
+    m = measure(H, u, x, lam, nu[:, None])
+    verdict = stalled(x, m, contract)
+    dlam = ((lam - ref["lam"]).abs() / (1 + ref["lam"].abs())).amax(-1)
+    nu_ref = ref["nu"][:, 0]
+    dnu = (nu - nu_ref).abs() / (1 + nu_ref.abs())
+    return dict(
+        x_err=_worst((x - ref["x"]).abs().amax(-1)),
+        obj_err=_worst((m["f"] - ref["f"]).abs()),
+        gap_err=_worst((out["gap"].to(f64) - m["gap"]).abs()),
+        dual_err=_worst(torch.maximum(dlam, dnu)),
+        res_err=_worst(torch.maximum((out["ineq"].to(f64) - m["ineq"]).abs(),
+                                     (out["eq"].to(f64) - m["eq"]).abs())),
+        stall_diff=int((out["stalled"].bool() != verdict).sum()))

@@ -10,6 +10,11 @@ with ``--trace 1`` ``breakdown``, and last ``checks``: each number the
 comparison held beside its limit (also the last lines of standard error).
 Exits 1 and prints no result when there is no CUDA device or fewer than
 the cell asks for, and when JAX or the JAX package was loaded.
+
+A cell of R > 1 chips runs on R ranks, this process rank 0 on the first
+card and the others started by it (``ranks.py``); only rank 0 times,
+traces and prints, ``device.count`` is R and ``memory_peak_bytes`` the
+peak of the fullest card.
 """
 
 import time

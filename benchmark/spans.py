@@ -2,14 +2,15 @@
 per-layer metrics that read them.
 
 ``read(run)`` traces ``breakdown_calls`` calls of the cell's mix on a model
-of its own, host and device, each call inside ``trace.CALL_SPAN`` and ending
-in ``synchronize()``, once per run (cached on ``run``).  ``attribute`` then
-links each device op to its launch (the runtime call with the same
-correlation id) and from there to the ``cvx.*`` spans that cover the
-launch, and splits the device's idle time inside the calls by the innermost
-``cvx.*`` span the host was in.  A program without spans yields an
-attribution with none, and each metric then gives no value.  What it read
-is printed to the run's log.
+of its own (made through ``run.program``, so that the ranks of a cell of
+several take the same steps), host and device, each call inside
+``trace.CALL_SPAN`` and ending in ``synchronize()``, once per run (cached
+on ``run``).  ``attribute`` then links each device op to its launch (the
+runtime call with the same correlation id) and from there to the ``cvx.*``
+spans that cover the launch, and splits the device's idle time inside the
+calls by the innermost ``cvx.*`` span the host was in.  A program without
+spans yields an attribution with none, and each metric then gives no value.
+What it read is printed to the run's log.
 
 The profiler's device timestamps do not keep to the host's clock: on an
 H100 with torch 2.11 kernels were stamped up to 1.24 ms before the
@@ -157,23 +158,20 @@ def _raw(prof):
 
 
 def _trace(run):
-    import torch
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
-    cell, device = run.cell, run.H.device
-    fam, mix = cell.family, cell.mix
-    model = fam.make_model(cell.config, run.H)
+    call = run.program.make()
     pool = len(run.pool)
     for b in range(pool):           # the new model's first calls
-        fam.call(model, mix, run.pool[b])
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(mix["breakdown_calls"]):
+        call(b)
+    run.sync()
+    with profile(activities={ProfilerActivity.CPU,
+                             *trace.device_activities(run.device)}) as prof:
+        for i in range(run.cell.mix["breakdown_calls"]):
             with record_function(trace.CALL_SPAN):
-                fam.call(model, mix, run.pool[i % pool])
-                torch.cuda.synchronize(device)
+                call(i % pool)
+                run.sync()
     return attribute(*_raw(prof))
 
 
@@ -209,7 +207,7 @@ def read(run):
     made once and kept on ``run``; None where nothing ran on a card."""
     if not hasattr(run, "spans"):
         run.spans = None
-        if run.H.device.type == "cuda":
+        if trace.device_activities(run.device):
             run.spans = _trace(run)
             _report(run.spans, run.log)
     return run.spans

@@ -2,7 +2,8 @@
 
 * a configuration: the JSON file its entry names (``configs/<name>.json``),
   whose ``family`` names the module under ``families/`` that makes its
-  inputs, reaches the program and gives its reference;
+  inputs, reaches the program, gives its reference and judges its outputs
+  (``harness.run_cell`` lists what a family provides);
 * a traffic mix: ``traffic/<name>.json``;
 * a metric: ``metrics/<name>.py``, whose ``read(run)`` returns the value
   or None when it finds nothing to read;
@@ -12,9 +13,9 @@
 A new cell, mix or metric is new files and entries: nothing here changes.
 """
 
-import importlib
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -60,11 +61,28 @@ def load(workload, root=None):
     moved = {m["name"] for m in e2e}
     per_layer = [m for m in spec["per_layer"]
                  if _reports(m, workload, moved)]
-    family = importlib.import_module(
-        f"{here.as_posix().replace('/', '.')}.families.{config['family']}")
     return Cell(name=workload, chips=entry["chips"], config=config, mix=mix,
-                limits=limits, family=family, end_to_end=e2e,
-                per_layer=per_layer, root=root)
+                limits=limits, family=family(root, here, config["family"]),
+                end_to_end=e2e, per_layer=per_layer, root=root)
+
+
+def family(root, here, name):
+    """The module ``families/<name>.py`` of the benchmark at ``root``/
+    ``here``, loaded from that file, so that a copy of the benchmark finds
+    its own families whatever ``sys.path`` holds.  It is registered under
+    its package's name (``benchmark.families.<name>``), replacing a module
+    of that name loaded from another file, and its relative imports resolve
+    through that package."""
+    path = (Path(root) / here / "families" / f"{name}.py").resolve()
+    modname = f"{here.as_posix().replace('/', '.')}.families.{name}"
+    module = sys.modules.get(modname)
+    if module is not None and Path(module.__file__).resolve() == path:
+        return module
+    mod_spec = importlib.util.spec_from_file_location(modname, path)
+    module = importlib.util.module_from_spec(mod_spec)
+    sys.modules[modname] = module
+    mod_spec.loader.exec_module(module)
+    return module
 
 
 def reader(name, root):

@@ -31,12 +31,16 @@ def test_every_cell_is_found_by_name():
             "instances_per_s", "call_ms_p95", "setup_s"]
         for m in cell.per_layer:
             assert callable(spec.reader(m["name"], ROOT))
+    every = {"device.idle_pct", "entry.device_ops_per_call",
+             "entry.host_ms_per_call", "kernel.wrapper_us_per_launch",
+             "device.idle_in_program_pct", "setup.kernel_load_s"}
     primal = {m["name"] for m in spec.load(CELLS[2]).per_layer}
-    assert primal == {"device.idle_pct", "entry.device_ops_per_call",
-                      "cert.device_ms_per_call", "kernel.k3_roofline"}
-    certified = {m["name"] for m in spec.load(CELLS[0]).per_layer}
-    assert certified == {"device.idle_pct", "entry.device_ops_per_call",
-                         "kernel.k2_roofline"}
+    assert primal == every | {"cert.device_ms_per_call", "kernel.k3_roofline",
+                              "cert.host_ms_per_call",
+                              "cert.span_device_ms_per_call"}
+    for name in CELLS[:2]:
+        certified = {m["name"] for m in spec.load(name).per_layer}
+        assert certified == every | {"kernel.k2_roofline"}
 
 
 def test_each_metric_has_its_reader_file():

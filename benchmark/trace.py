@@ -50,14 +50,22 @@ def _events(prof):
     return dev, host
 
 
-def device_slice(call, calls, pool, sync, counters):
-    """Trace the device over ``calls`` calls of ``call(i)`` (batch i of the
-    pool, cycling), each ending in ``sync()``; ``counters()`` reads the
-    program's counters before and after."""
-    from torch.profiler import ProfilerActivity, profile
+def device_activities(device):
+    """The profiler's activities that record ``device``'s ops: the card's,
+    and none off it, where the harness takes no traced slice."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA] if device.type == "cuda" else []
+
+
+def device_slice(call, calls, pool, sync, counters, activities):
+    """Trace the device (``activities``) over ``calls`` calls of ``call(i)``
+    (batch i of the pool, cycling), each ending in ``sync()``;
+    ``counters()`` reads the program's counters before and after."""
+    from torch.profiler import profile
 
     before = counters()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for i in range(calls):
             call(i % pool)
@@ -70,15 +78,15 @@ def device_slice(call, calls, pool, sync, counters):
                  batches=[i % pool for i in range(calls)])
 
 
-def host_slice(call, calls, pool, sync, top=10):
-    """Trace host and device over ``calls`` calls and return the longest
-    idle gaps of the device, summed by the innermost host op running at
-    each gap's middle: [[name, seconds], ...], at most ``top``."""
+def host_slice(call, calls, pool, sync, activities, top=10):
+    """Trace host and device (``activities``) over ``calls`` calls and
+    return the longest idle gaps of the device, summed by the innermost host
+    op running at each gap's middle: [[name, seconds], ...], at most
+    ``top``."""
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities={ProfilerActivity.CPU, *activities}) as prof:
         for i in range(calls):
             with record_function(CALL_SPAN):
                 call(i % pool)
