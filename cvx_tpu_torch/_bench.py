@@ -241,12 +241,13 @@ def k1_agreement(got, ref, tol, ztol):
 
 
 def k2_agreement(got, ref):
-    """K2's ``(x, z, gap, ineq, eq)`` against its plain version's.
+    """K2's ``(x, z, gap, ineq, eq)`` (its first five outputs) against its
+    plain version's.
     ``dead_same``: the same dead lanes.  ``close``: on the lanes the plain
     version certifies (|gap| <= CERT_GAP), x, gap, z and the residuals
     within K2_DX, K2_DGAP, K2_DZ and K2_DRES."""
-    xk, zk, gk, ik, ek = got
-    xp, zp, gp, ip, ep = ref
+    xk, zk, gk, ik, ek = got[:5]
+    xp, zp, gp, ip, ep = ref[:5]
     cert = torch.isfinite(gp) & (gp.abs() <= CERT_GAP)
     a = dict(dead_same=bool(torch.equal(torch.isinf(gk), torch.isinf(gp))),
              certified=int(cert.sum()), lanes=len(gp),

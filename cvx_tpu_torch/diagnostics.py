@@ -44,7 +44,7 @@ from ._spans import span
 from .ops import _build
 from .ops.chol import cholesky_batched_cuda
 from .ops.kl_barrier import kl_barrier_fused
-from .models.dist_kl import kl_dual_gap
+from .models.dist_kl import _cert_solution, kl_dual_gap
 from .ops.kl_dual import kl_dual_fused, kl_dual_fused_cert
 from .ops.kl_gap import kl_gap_fused
 from .problem.constraint_set import ConstraintSet
@@ -77,13 +77,18 @@ def counters() -> dict:
     """The program's counters since the process started: each kernel
     wrapper's launches (its ``.launches``), ``kl_dual_gap_chain_calls``
     (CUDA calls of ``kl_dual_gap`` that ran the torch chain, not
-    ``kl_gap_fused``'s kernel), ``nvcc_runs`` (unit -> nvcc runs),
-    ``kernel_loads`` and ``kernel_load_s`` (kernel libraries built or
-    loaded at first use, and the host seconds that took)."""
+    ``kl_gap_fused``'s kernel), ``cert_leaves_fused`` / ``cert_leaves_torch``
+    (certified Solutions whose per-instance leaves K2 wrote on the card /
+    that the torch rule made: the f64 route, ``solve_certified``, the
+    CPU), ``nvcc_runs`` (unit -> nvcc runs), ``kernel_loads`` and
+    ``kernel_load_s`` (kernel libraries built or loaded at first use, and
+    the host seconds that took)."""
     out = {f.__name__: f.launches for f in (
         kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused, kl_gap_fused,
         cholesky_batched_cuda)}
     out.update(kl_dual_gap_chain_calls=kl_dual_gap.chain_calls,
+               cert_leaves_fused=_cert_solution.leaves_fused,
+               cert_leaves_torch=_cert_solution.leaves_torch,
                nvcc_runs=dict(_build.nvcc_runs),
                kernel_loads=_build.kernel_loads,
                kernel_load_s=_build.kernel_load_s)

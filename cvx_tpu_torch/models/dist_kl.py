@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -41,8 +42,9 @@ import torch
 from .._spans import span
 from ..duality import _polish_dual, _small_solve, solve_dual
 from ..ops.kl_barrier import fused_final_t, fused_n_outer, kl_barrier_fused
-from ..ops.kl_dual import (_FUSED_MAX_DIM, _certify_f64, _Ctx, _polish_f64,
-                           _residuals, _solve_small, kl_dual_fused,
+from ..ops.kl_dual import (_FUSED_MAX_DIM, _cert_leaves, _certify_f64, _Ctx,
+                           _polish_f64, _residuals, _solve_small, _stalled,
+                           _uniform_log_prior, kl_dual_fused,
                            kl_dual_fused_cert)
 from ..ops.kl_gap import (_NegDualObjective, _prior_terms, kl_gap_fused,
                           kl_gap_fused_plain, route_of)
@@ -219,15 +221,31 @@ def kl_certify(H, u, A, b, x, *, z0=None, polish_steps=6, prior=None,
         lam=zt[:, :k], nu=zt[:, k:])
 
 
-def _stalled(x, gap, ineq, tol, tol_feas, eq=None):
-    """stalled = not(|gap| <= tol and ineq <= tol_feas [and eq <=
-    tol_feas]), or a non-finite x.  |gap|: an infeasible instance's dual
-    drives the gap to -inf; the measured residuals join because a small
-    gap alone cannot certify feasibility; the not-<= form flags NaN."""
-    ok = (torch.abs(gap) <= tol) & (ineq <= tol_feas)
-    if eq is not None:
-        ok = ok & (eq <= tol_feas)
-    return ~torch.all(torch.isfinite(x), dim=-1) | ~ok
+@span("cvx.route.cert_solution")
+def _cert_solution(cert, pars, iters, leaves=None):
+    """Batched Solution from certificate leaves.  ``leaves``: K2's
+    per-instance ``(stalled, nan, iters, maxed_out)`` where the kernel (or,
+    on the CPU, its plain version) wrote them, taken as they are; without
+    them, the stall rule and the fills in torch.  Counts the calls whose
+    leaves K2 wrote on the card (``_cert_solution.leaves_fused``) and the
+    others (``.leaves_torch``)."""
+    x, gap, ineq, eq = cert.x, cert.gap, cert.ineq_res, cert.eq_res
+    if leaves is not None and x.is_cuda:
+        _cert_solution.leaves_fused += 1
+    else:
+        _cert_solution.leaves_torch += 1
+    if leaves is None:
+        leaves = _cert_leaves(x, gap, ineq, eq, pars.tol, pars.tol_feas,
+                              iters)
+    stalled, nan, iters, maxed = leaves
+    return Solution(
+        x=x, lam=cert.lam, nu=cert.nu, newton_decrement=nan,
+        duality_gap=gap, eq_gap=eq, norm_grad=nan, norm_dual_residual=nan,
+        iters=iters, maxed_out=maxed, stalled=stalled, ineq_res=ineq)
+
+
+_cert_solution.leaves_fused = 0
+_cert_solution.leaves_torch = 0
 
 
 @dataclass
@@ -328,6 +346,14 @@ class DistKL:
     def dual_dim(self) -> int:
         """mI + 1 + mE (Dist_KL.scala:115-116)."""
         return self.H.shape[0] + 1 + self.A.shape[0]
+
+    @cached_property
+    def _log_prior64(self) -> torch.Tensor:
+        """The f64 log prior (n,) K2 takes, made at the first certified
+        call and kept on the model, so that a call makes none."""
+        if self.prior is None:
+            return _uniform_log_prior(self.n, torch.float64, self.H.device)
+        return torch.log(self.prior.to(torch.float64))
 
     def _R(self, dtype=None) -> torch.Tensor:
         """Dual constant R = p/e (uniform: 1/(n e), Dist_KL.scala:131)."""
@@ -437,7 +463,7 @@ class DistKL:
         _, rb = self._bounds(u)
         cert = self._certify(u, rb, sol.x, torch.cat([sol.lam, sol.nu], 1),
                              polish_steps)
-        return self._cert_solution(cert, pars, steps + polish_steps)
+        return _cert_solution(cert, pars, steps + polish_steps)
 
     def solve_certified(self, pars: SolverParams | None = None,
                         steps: int = 16, polish_steps: int = 2) -> Solution:
@@ -453,21 +479,6 @@ class DistKL:
         return kl_certify(self.H, u, self.equalities.A, b, xs, z0=zs,
                           polish_steps=polish_steps, prior=self.prior,
                           compare_input=False)
-
-    @span("cvx.route.cert_solution")
-    def _cert_solution(self, cert, pars, iters):
-        """Batched Solution from certificate leaves."""
-        x, gap, ineq, eq = cert.x, cert.gap, cert.ineq_res, cert.eq_res
-        shape, dev = gap.shape, x.device
-        nan = torch.full(shape, math.nan, dtype=torch.float64, device=dev)
-        return Solution(
-            x=x, lam=cert.lam, nu=cert.nu, newton_decrement=nan,
-            duality_gap=gap, eq_gap=eq, norm_grad=nan,
-            norm_dual_residual=nan,
-            iters=torch.full(shape, iters, device=dev),
-            maxed_out=torch.zeros(shape, dtype=torch.bool, device=dev),
-            stalled=_stalled(x, gap, ineq, pars.tol, pars.tol_feas, eq=eq),
-            ineq_res=ineq)
 
     @span("cvx.entry.solve_certified_batch")
     def solve_certified_batch(self, u, r=None,
@@ -506,16 +517,16 @@ class DistKL:
                     "fused_cert=True requires f32 problem data (the kernel "
                     f"takes f32; got {dtype}) — use fused_cert=False for "
                     "the f64 finishing pass on f64 models")
-            lp = (None if self.prior is None
-                  else torch.log(self.prior.to(torch.float64)))
-            x, z, gap, ineq, eq = kl_dual_fused_cert(
+            x, z, gap, ineq, eq, *leaves = kl_dual_fused_cert(
                 self.H[None].expand(B, k, self.n), u,
                 self.A[None].expand(B, m_eq, self.n) if m_eq > 0 else None,
-                rb if m_eq > 0 else None, log_prior=lp, n_steps=steps,
-                polish_steps=polish_steps, z0=float(pars.dual_start))
+                rb if m_eq > 0 else None, log_prior=self._log_prior64,
+                n_steps=steps, polish_steps=polish_steps,
+                z0=float(pars.dual_start), tol=pars.tol,
+                tol_feas=pars.tol_feas)
             cert = KLCertificate(x=x, gap=gap, ineq_res=ineq, eq_res=eq,
                                  lam=z[:, :k], nu=z[:, k:])
-            return self._cert_solution(cert, pars, steps + polish_steps)
+            return _cert_solution(cert, pars, steps + polish_steps, leaves)
         if kernel_fits:
             sol = self._dual_fused_batch(u, pars, steps, r=rb)
         else:
@@ -525,7 +536,7 @@ class DistKL:
             sol = self._dual_newton_batch(u, pars, steps, r=rb)
         cert = self._certify(u, rb, sol.x, torch.cat([sol.lam, sol.nu], 1),
                              polish_steps)
-        return self._cert_solution(cert, pars, steps + polish_steps)
+        return _cert_solution(cert, pars, steps + polish_steps)
 
     # -------------------------------------------------------- primal routes
     def _fused_batch(self, u, x0, pars) -> Solution:

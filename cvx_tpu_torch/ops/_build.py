@@ -146,8 +146,8 @@ _ROWS = [_P] * 5 + [_I64] * 8             # Hs, u, A, r, log_prior; strides
 _K1 = _ROWS + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
 KL_DUAL_SIGNATURES = {
     "kl_dual_fused_f32": _K1, "kl_dual_fused_f64": _K1,
-    "kl_dual_fused_cert_f32": (_ROWS + [_P] * 5 + [_I32] * 5
-                               + [_F64, _I32, _I32, _P])}
+    "kl_dual_fused_cert_f32": (_ROWS + [_P] * 9 + [_I32] * 5
+                               + [_F64, _I32, _I32, _F64, _F64, _P])}
 _KL_DUAL_UNITS = {"kl_dual_fused_f32": "kl_dual_f32",
                   "kl_dual_fused_f64": "kl_dual_f64",
                   "kl_dual_fused_cert_f32": "kl_dual_cert"}

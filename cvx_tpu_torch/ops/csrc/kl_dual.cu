@@ -88,7 +88,11 @@
 // tests/test_torch_cuda.py hold the kernels to the plain versions by a
 // tolerance, not bit for bit.  K2 runs the K1 f32 device code, then the
 // warm polish and the certificate in native f64, where the TPU kernel used
-// double-single pairs.
+// double-single pairs.  Its epilogue also writes the Solution's
+// per-instance leaves (CertLeaves: the stall flag by the route's rule and
+// the constant leaves), so that a certified call launches K2 alone; the
+// finiteness of x that the flag needs is a warp vote, on the group path
+// gathered from the group's warps beside the last reduction's sums.
 //
 // Interface: plain C, pointers and element strides; the lane axis is
 // contiguous, the batch and row strides are free (0 for a shared,
@@ -744,6 +748,28 @@ __device__ __forceinline__ void polish_take(double (&dz)[DIM], bool sick,
   }
 }
 
+// K2's per-instance Solution leaves beside the certificate, so that the
+// certified route launches nothing else: stalled by _stalled's rule
+// (../kl_dual.py; the not-<= form flags NaN and the dead lane's +inf gap),
+// the quiet NaN torch.full writes for the leaves no certified route
+// measures, the steps taken, and maxed_out false
+struct CertLeaves {
+  bool* stalled;
+  double* nan;
+  long long* iters;
+  bool* maxed;
+  double tol, tol_feas;
+  long long steps;
+  __device__ __forceinline__ void write(int b, bool x_finite, double gap,
+                                        double ineq, double eq) const {
+    stalled[b] = !x_finite ||
+                 !(fabs(gap) <= tol && ineq <= tol_feas && eq <= tol_feas);
+    nan[b] = __longlong_as_double(0x7ff8000000000000LL);
+    iters[b] = steps;
+    maxed[b] = false;
+  }
+};
+
 // ------------------------------------------------------------ held path
 // The fixed-schedule active-set projected-Newton loop (the reference's
 // _newton_z, pallas_kl_dual.py:245-486), one warp per instance: the held
@@ -962,7 +988,8 @@ __device__ void polish_step(const Rows<float, double>& P,
 }
 
 // K2 (held): the K1 f32 solve, polish_steps f64 polish steps, and the f64
-// certificate (x, gap, ineq_res, eq_res) from one exp pass
+// certificate (x, gap, ineq_res, eq_res) from one exp pass, with the
+// Solution's leaves
 template <int DIM, int NC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
@@ -974,7 +1001,7 @@ kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
                     double* __restrict__ zout, double* __restrict__ gap,
                     double* __restrict__ ineq, double* __restrict__ eq,
                     int B, int n, int k_rows, int n_steps, float z0,
-                    int n_ls, int polish_steps) {
+                    int n_ls, int polish_steps, const CertLeaves leaves) {
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (b >= B) return;
@@ -1011,12 +1038,14 @@ kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
   double xbtz = 0.0, hx[DIM], nmax = -INFINITY;
 #pragma unroll
   for (int j = 0; j < DIM; ++j) hx[j] = 0.0;
+  bool xfin = true;
   double* xb = x + (long long)b * n;
   each_coord<DIM, NC, double>(P, lane, S, [&](const double(&h)[DIM],
                                              double lp, int c, int i) {
     const double btz = bt_of<DIM>(z, h, k);
     const double xi = ys[c] / den;
     xb[i] = xi;
+    xfin = xfin && isfinite(xi);
     xbtz += xi * btz;
 #pragma unroll
     for (int j = 0; j < DIM; ++j) hx[j] += xi * h[j];
@@ -1026,13 +1055,15 @@ kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
 #pragma unroll
   for (int j = 0; j < DIM; ++j) hx[j] = warp_sum(hx[j]);
   nmax = warp_max(nmax);
+  xfin = __all_sync(kFull, xfin);
   if (lane == 0) {
     double wz = w[0] * z[0];
 #pragma unroll
     for (int j = 1; j < DIM; ++j) wz = wz + w[j] * z[j];
     // log x - log p = -B'z - 1 - log sum(y): one scalar log
     const double f_ref = -xbtz - 1.0 - log(sy);
-    gap[b] = dead ? INFINITY : f_ref + (wz + sy);
+    const double g = dead ? INFINITY : f_ref + (wz + sy);
+    gap[b] = g;
     double viol = jmax(nmax, 0.0), eqr = fabs(pick<DIM>(hx, k) - 1.0);
 #pragma unroll
     for (int j = 0; j < DIM; ++j) {
@@ -1041,6 +1072,7 @@ kl_dual_cert_kernel(const float* __restrict__ H, const float* __restrict__ u,
     }
     ineq[b] = viol;
     eq[b] = eqr;
+    leaves.write(b, xfin, g, viol, eqr);
 #pragma unroll
     for (int j = 0; j < DIM; ++j) zout[(long long)b * DIM + j] = z[j];
   }
@@ -1531,7 +1563,8 @@ __device__ void polish_group(const Rows<float, double>& P, const Grp& g,
   group_bcast<DIM>(g, z, bc);
 }
 
-// K2 (group): the K1 f32 solve, the f64 polish and the certificate
+// K2 (group): the K1 f32 solve, the f64 polish and the certificate, with
+// the Solution's leaves
 template <int DIM, bool ONE>
 __global__ void __launch_bounds__(
     group_bound_threads<DIM, ONE>(),
@@ -1544,7 +1577,8 @@ kl_dual_cert_group_kernel(
     long long srb, long long srm, double* __restrict__ x,
     double* __restrict__ zout, double* __restrict__ gap,
     double* __restrict__ ineq, double* __restrict__ eq, int B, int n,
-    int k_rows, int n_steps, float z0, int n_ls, int polish_steps, int G) {
+    int k_rows, int n_steps, float z0, int n_ls, int polish_steps,
+    const CertLeaves leaves, int G) {
   constexpr int RL = group_row<DIM>(), BC = group_bcast<DIM>();
   // f32 phase and f64 phase share the buffers
   __shared__ double part_d[group_block_threads<DIM>() / 32 * RL];
@@ -1585,6 +1619,7 @@ kl_dual_cert_group_kernel(
   double v[DIM + 1], nmax = -INFINITY;  // x.B'z, then B_j x
 #pragma unroll
   for (int j = 0; j < DIM + 1; ++j) v[j] = 0.0;
+  bool xfin = true;
   double* xb = x + (long long)b * n;
   for (int i = g.t(); i < n; i += g.stride()) {
     double h[DIM], lp;
@@ -1592,14 +1627,23 @@ kl_dual_cert_group_kernel(
     const double btz = bt_of<DIM>(z, h, k);
     const double xi = exp(-btz - 1.0 + lp) / den;
     if (at.live) xb[i] = xi;
+    xfin = xfin && isfinite(xi);
     v[0] += xi * btz;
 #pragma unroll
     for (int j = 0; j < DIM; ++j) v[1 + j] += xi * h[j];
     nmax = jmax(nmax, -xi);
   }
+  // each warp's vote that its x is finite, in its row past the sums and
+  // the max, where group_reduce's barrier orders it before warp 0's read
+  const int vote = DIM + 2;
+  xfin = __all_sync(kFull, xfin);
+  if (g.lane == 0) part_d[g.wblk * RL + vote] = xfin ? 1.0 : 0.0;
   group_reduce<DIM + 1, true>(g, v, nmax, part_d, RL);
   if (at.live && g.warp == 0 && g.lane == 0) {
     const double* fin = group_fin(g, part_d, RL);
+    bool x_finite = true;
+    for (int q = 0; q < g.G; ++q)
+      x_finite = x_finite && fin[q * RL + vote] != 0.0;
     double hx[DIM];
 #pragma unroll
     for (int j = 0; j < DIM; ++j) hx[j] = fin[1 + j];
@@ -1608,7 +1652,8 @@ kl_dual_cert_group_kernel(
     for (int j = 1; j < DIM; ++j) wz = wz + w[j] * z[j];
     // log x - log p = -B'z - 1 - log sum(y): one scalar log
     const double f_ref = -fin[0] - 1.0 - log(sy);
-    gap[b] = dead ? INFINITY : f_ref + (wz + sy);
+    const double gp = dead ? INFINITY : f_ref + (wz + sy);
+    gap[b] = gp;
     double viol = jmax(fin[DIM + 1], 0.0), eqr = fabs(pick<DIM>(hx, k) - 1.0);
 #pragma unroll
     for (int j = 0; j < DIM; ++j) {
@@ -1617,6 +1662,7 @@ kl_dual_cert_group_kernel(
     }
     ineq[b] = viol;
     eq[b] = eqr;
+    leaves.write(b, x_finite, gp, viol, eqr);
 #pragma unroll
     for (int j = 0; j < DIM; ++j) zout[(long long)b * DIM + j] = z[j];
   }
@@ -1750,18 +1796,23 @@ int kl_dual_fused_cert_f32(const void* H, const void* u, const void* A,
                            long long sHk, long long sub, long long suk,
                            long long sAb, long long sAm, long long srb,
                            long long srm, void* x, void* z, void* gap,
-                           void* ineq, void* eq, int B, int n, int k,
+                           void* ineq, void* eq, void* stalled, void* nan,
+                           void* iters, void* maxed, int B, int n, int k,
                            int m_eq, int n_steps, double z0, int n_ls,
-                           int polish_steps, void* stream) {
+                           int polish_steps, double tol, double tol_feas,
+                           void* stream) {
   if (n_ls < 1 || n_ls > kMaxLs) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int dim = k + 1 + m_eq;
   const int G = group_warps(dim, n, B), per = group_per_block(G);
+  const CertLeaves leaves{(bool*)stalled, (double*)nan, (long long*)iters,
+                          (bool*)maxed, tol, tol_feas,
+                          (long long)n_steps + polish_steps};
 #define KL_K2_ARGS                                                          \
   (const float*)H, (const float*)u, (const float*)A, (const float*)r,       \
       (const double*)logp, sHb, sHk, sub, suk, sAb, sAm, srb, srm,          \
       (double*)x, (double*)z, (double*)gap, (double*)ineq, (double*)eq, B,  \
-      n, k, n_steps, float(z0), n_ls, polish_steps
+      n, k, n_steps, float(z0), n_ls, polish_steps, leaves
 #define KL_K2_CASE(D)                                                       \
   case D:                                                                   \
     if constexpr (held_dim<D>()) {                                          \

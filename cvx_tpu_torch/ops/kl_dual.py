@@ -12,7 +12,10 @@ Counterpart of ``cvx_tpu/ops/pallas_kl_dual.py``.  Two kernels, both in
   warm Newton steps and the certificate (gap, inequality and equality
   residuals) in native f64.  The TPU kernel carried double-single pairs
   (ops/ds.py) because the TPU has no f64 unit; the H100 does, so the
-  outputs are plain f64 tensors instead of the reference's hi/lo 8-tuple.
+  outputs are plain f64 tensors instead of the reference's hi/lo 8-tuple,
+  followed by the certified Solution's per-instance leaves (the stall
+  flag, a NaN leaf, iters, maxed_out), which the kernel's epilogue writes
+  so that the certified route launches nothing else.
 
 Per step (B = [H; 1'; A], w = (u, 1, r), z = (lam, nu), p the prior):
 
@@ -399,10 +402,10 @@ def _newton_z(ctx, *, n_steps, z0, n_ls):
     return z
 
 
-def _check_args(name, Hs, u, A, r, log_prior, *, n_steps, n_ls,
-                polish_steps=0):
+def _check_shapes(name, Hs, u, A, r, log_prior, *, n_steps, n_ls,
+                  polish_steps=0):
     """Shape and schedule checks shared by the plain versions and the
-    wrappers; returns (A, r) with empty (B, 0, n) / (B, 0) stand-ins."""
+    wrappers, with A and r both None or both given; returns m_eq."""
     if Hs.dim() != 3 or u.dim() != 2:
         raise ValueError(f"{name}: Hs must be (B, k, n) and u (B, k), got "
                          f"{tuple(Hs.shape)} and {tuple(u.shape)}")
@@ -410,27 +413,39 @@ def _check_args(name, Hs, u, A, r, log_prior, *, n_steps, n_ls,
     if (A is None) != (r is None):
         raise ValueError(f"{name}: A and r must be given together "
                          "(extra equality rows A x = r)")
-    if A is None:
-        A = Hs.new_zeros((B, 0, n))
-        r = u.new_zeros((B, 0))
-    m_eq = A.shape[1]
+    m_eq = 0 if A is None else A.shape[1]
     dim = k + 1 + m_eq
     if not (k + m_eq >= 1 and dim <= _FUSED_MAX_DIM):
         raise ValueError(
             f"{name} supports 1 <= k + m_eq and k + 1 + m_eq <= "
             f"{_FUSED_MAX_DIM}, got k={k}, m_eq={m_eq}")
-    if (tuple(u.shape) != (B, k) or A.dim() != 3
-            or tuple(A.shape) != (B, m_eq, n)
-            or tuple(r.shape) != (B, m_eq)):
+    if tuple(u.shape) != (B, k) or (A is not None and (
+            A.dim() != 3 or tuple(A.shape) != (B, m_eq, n)
+            or tuple(r.shape) != (B, m_eq))):
         raise ValueError(f"{name}: shapes Hs {tuple(Hs.shape)}, u "
-                         f"{tuple(u.shape)}, A {tuple(A.shape)}, r "
-                         f"{tuple(r.shape)} do not agree")
+                         f"{tuple(u.shape)}, A "
+                         f"{None if A is None else tuple(A.shape)}, r "
+                         f"{None if r is None else tuple(r.shape)} do not "
+                         "agree")
     if log_prior is not None and tuple(log_prior.shape) != (n,):
         raise ValueError(f"{name}: log_prior must be ({n},), got "
                          f"{tuple(log_prior.shape)}")
     if n < 1 or n_steps < 0 or polish_steps < 0 or not 1 <= n_ls <= _MAX_LS:
         raise ValueError(f"{name}: need n >= 1, n_steps >= 0, polish_steps "
                          f">= 0 and 1 <= n_ls <= {_MAX_LS}")
+    return m_eq
+
+
+def _check_args(name, Hs, u, A, r, log_prior, *, n_steps, n_ls,
+                polish_steps=0):
+    """``_check_shapes``; returns (A, r) with empty (B, 0, n) / (B, 0)
+    stand-ins for absent ones."""
+    _check_shapes(name, Hs, u, A, r, log_prior, n_steps=n_steps, n_ls=n_ls,
+                  polish_steps=polish_steps)
+    if A is None:
+        B, _, n = Hs.shape
+        A = Hs.new_zeros((B, 0, n))
+        r = u.new_zeros((B, 0))
     return A, r
 
 
@@ -569,14 +584,41 @@ def _certify_f64(ctx, z):
     return x, gap, viol, eq, dval
 
 
+def _stalled(x, gap, ineq, tol, tol_feas, eq=None):
+    """stalled = not(|gap| <= tol and ineq <= tol_feas [and eq <=
+    tol_feas]), or a non-finite x.  |gap|: an infeasible instance's dual
+    drives the gap to -inf; the measured residuals join because a small
+    gap alone cannot certify feasibility; the not-<= form flags NaN."""
+    ok = (torch.abs(gap) <= tol) & (ineq <= tol_feas)
+    if eq is not None:
+        ok = ok & (eq <= tol_feas)
+    return ~torch.all(torch.isfinite(x), dim=-1) | ~ok
+
+
+def _cert_leaves(x, gap, ineq, eq, tol, tol_feas, steps):
+    """The certified Solution's per-instance leaves by the torch rule, as
+    K2's epilogue writes them: ``(stalled, nan, iters, maxed_out)``, the
+    NaN leaf f64 and iters int64."""
+    dev = x.device
+    return (_stalled(x, gap, ineq, tol, tol_feas, eq=eq),
+            torch.full(gap.shape, math.nan, dtype=torch.float64, device=dev),
+            torch.full(gap.shape, steps, device=dev),
+            torch.zeros(gap.shape, dtype=torch.bool, device=dev))
+
+
 def kl_dual_fused_cert_plain(Hs, u, A=None, r=None, log_prior=None, *,
-                             n_steps=16, polish_steps=2, z0=1e-3, n_ls=5):
+                             n_steps=16, polish_steps=2, z0=1e-3, n_ls=5,
+                             tol=1e-8, tol_feas=1e-7):
     """Plain PyTorch version of K2 (any device).
 
     ``Hs``/``u``/``A``/``r`` are f32 problem data; ``log_prior`` (n,)
     should carry full f64 precision (None = uniform).  Runs the K1 f32
     schedule, then ``polish_steps`` warm Newton steps and the certificate
-    in f64.  Returns f64 ``(x, z, gap, ineq_res, eq_res)``.
+    in f64.  Returns f64 ``(x, z, gap, ineq_res, eq_res)``, then the
+    Solution's per-instance leaves (``_cert_leaves``): ``stalled``
+    (``_stalled`` at ``tol`` and ``tol_feas``, equality residual
+    included), an f64 NaN leaf, ``iters`` (int64, n_steps + polish_steps)
+    and ``maxed_out`` (False).
     """
     A, r = _check_args("kl_dual_fused_cert", Hs, u, A, r, log_prior,
                        n_steps=n_steps, n_ls=n_ls, polish_steps=polish_steps)
@@ -591,7 +633,9 @@ def kl_dual_fused_cert_plain(Hs, u, A=None, r=None, log_prior=None, *,
     z = _polish_f64(ctx, [zj.to(f64) for zj in z32], polish_steps,
                     guard_sick=True)
     x, gap, ineq, eq, _ = _certify_f64(ctx, z)
-    return x, torch.stack(z, dim=1), gap, ineq, eq
+    return (x, torch.stack(z, dim=1), gap, ineq, eq,
+            *_cert_leaves(x, gap, ineq, eq, tol, tol_feas,
+                          n_steps + polish_steps))
 
 
 # --------------------------------------------------------------- wrappers
@@ -600,11 +644,12 @@ def _kernel_args(name, dtype, tensors, log_prior, lp_dtype):
     the element strides; raises on anything the kernel does not take."""
     Hs, u, A, r = tensors
     dev = Hs.device
-    for t in (*tensors, log_prior):
+    given = [t for t in tensors if t is not None]
+    for t in (*given, log_prior):
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got "
                              f"one on {t.device}")
-    for t in tensors:
+    for t in given:
         if t.dtype != dtype:
             raise ValueError(f"{name}: the CUDA kernel takes {dtype} "
                              f"Hs/u/A/r, got {t.dtype}")
@@ -613,13 +658,16 @@ def _kernel_args(name, dtype, tensors, log_prior, lp_dtype):
                          f"log_prior, got {log_prior.dtype}")
     n = Hs.shape[2]
     for t in (Hs, A):
-        if n > 1 and t.shape[1] > 0 and t.stride(2) != 1:
+        if n > 1 and t is not None and t.shape[1] > 0 and t.stride(2) != 1:
             raise ValueError(f"{name}: the lane axis of Hs and A must be "
                              "contiguous (stride 1); call .contiguous()")
     if n > 1 and log_prior.stride(0) != 1:
         raise ValueError(f"{name}: log_prior must be contiguous")
-    return (Hs.stride(0), Hs.stride(1), u.stride(0), u.stride(1),
-            A.stride(0), A.stride(1), r.stride(0), r.stride(1))
+    # absent A and r (no extra equality rows): null pointers, which the
+    # kernel never reads, at stride 0
+    rows = (A.stride(0), A.stride(1), r.stride(0), r.stride(1)) \
+        if A is not None else (0, 0, 0, 0)
+    return (Hs.stride(0), Hs.stride(1), u.stride(0), u.stride(1)) + rows
 
 
 def _launch(fn, name, dev, *args):
@@ -673,43 +721,53 @@ kl_dual_fused.launches = 0
 
 @span("cvx.kernel.kl_dual_fused_cert")
 def kl_dual_fused_cert(Hs, u, A=None, r=None, log_prior=None, *,
-                       n_steps=16, polish_steps=2, z0=1e-3, n_ls=5):
+                       n_steps=16, polish_steps=2, z0=1e-3, n_ls=5,
+                       tol=1e-8, tol_feas=1e-7):
     """K2: certified batch solve; returns f64 ``(x, z, gap, ineq_res,
-    eq_res)`` as ``kl_dual_fused_cert_plain`` does.
+    eq_res)`` and the leaves ``(stalled, nan, iters, maxed_out)`` as
+    ``kl_dual_fused_cert_plain`` does.
 
     CPU tensors run the plain version.  CUDA tensors need f32
     Hs/u/A/r and an f64 log_prior (None = uniform) and run the CUDA
-    kernel; anything it does not take raises.
+    kernel, which writes every output; anything it does not take raises.
     ``kl_dual_fused_cert.launches`` counts kernel launches.
     """
-    A, r = _check_args("kl_dual_fused_cert", Hs, u, A, r, log_prior,
-                       n_steps=n_steps, n_ls=n_ls, polish_steps=polish_steps)
-    B, k, n = Hs.shape
-    if log_prior is None:
-        log_prior = _uniform_log_prior(n, torch.float64, Hs.device)
+    kw = dict(n_steps=n_steps, polish_steps=polish_steps, n_ls=n_ls)
     if Hs.device.type == "cpu":
-        return kl_dual_fused_cert_plain(
-            Hs, u, A, r, log_prior, n_steps=n_steps,
-            polish_steps=polish_steps, z0=z0, n_ls=n_ls)
-    if Hs.device.type != "cuda":
+        return kl_dual_fused_cert_plain(Hs, u, A, r, log_prior, z0=z0,
+                                        tol=tol, tol_feas=tol_feas, **kw)
+    m_eq = _check_shapes("kl_dual_fused_cert", Hs, u, A, r, log_prior, **kw)
+    B, k, n = Hs.shape
+    dev = Hs.device
+    if log_prior is None:
+        log_prior = _uniform_log_prior(n, torch.float64, dev)
+    if dev.type != "cuda":
         raise ValueError("kl_dual_fused_cert: takes CPU or CUDA tensors, "
-                         f"got {Hs.device}")
+                         f"got {dev}")
     strides = _kernel_args("kl_dual_fused_cert", torch.float32,
                            (Hs, u, A, r), log_prior, torch.float64)
-    dim = k + 1 + A.shape[1]
-    f64 = dict(dtype=torch.float64, device=Hs.device)
-    x = torch.empty((B, n), **f64)
-    z = torch.empty((B, dim), **f64)
-    gap, ineq, eq = (torch.empty((B,), **f64) for _ in range(3))
+    dim = k + 1 + m_eq
+    # one buffer a dtype: x, z, then gap, ineq, eq and the NaN leaf; iters;
+    # stalled and maxed_out.  as_strided makes each view in one op (split
+    # and unbind cost more host time than separate allocations)
+    f64 = torch.empty(B * (n + dim + 4), dtype=torch.float64, device=dev)
+    iters = torch.empty(B, dtype=torch.int64, device=dev)
+    flags = torch.empty(2 * B, dtype=torch.bool, device=dev)
+    at, o = f64.as_strided, B * (n + dim)
+    x, z = at((B, n), (n, 1), 0), at((B, dim), (dim, 1), B * n)
+    gap, ineq, eq, nan = (at((B,), (1,), o + j * B) for j in range(4))
+    stalled, maxed = (flags.as_strided((B,), (1,), j * B) for j in range(2))
+    out = (x, z, gap, ineq, eq, stalled, nan, iters, maxed)
     if B == 0:
-        return x, z, gap, ineq, eq
+        return out
     ptr = _build.ptr
-    _launch("kl_dual_fused_cert_f32", "kl_dual_fused_cert", Hs.device,
-            ptr(Hs), ptr(u), ptr(A), ptr(r), ptr(log_prior), *strides,
-            ptr(x), ptr(z), ptr(gap), ptr(ineq), ptr(eq), B, n, k,
-            A.shape[1], n_steps, float(z0), n_ls, polish_steps)
+    _launch("kl_dual_fused_cert_f32", "kl_dual_fused_cert", dev,
+            ptr(Hs), ptr(u), None if A is None else ptr(A),
+            None if r is None else ptr(r), ptr(log_prior), *strides,
+            *(ptr(t) for t in out), B, n, k, m_eq, n_steps, float(z0), n_ls,
+            polish_steps, float(tol), float(tol_feas))
     kl_dual_fused_cert.launches += 1
-    return x, z, gap, ineq, eq
+    return out
 
 
 kl_dual_fused_cert.launches = 0

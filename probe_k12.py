@@ -284,7 +284,8 @@ def run_k1(lib, Hs, u, A=None, r=None):
 
 
 def run_k2(lib, Hs, u, A=None, r=None, polish_steps=2):
-    """``kl_dual_fused_cert`` on ``lib``: (x, z, gap, ineq_res, eq_res)."""
+    """``kl_dual_fused_cert`` on ``lib``: (x, z, gap, ineq_res, eq_res) and
+    the leaves (stalled, nan, iters, maxed_out) at the default tolerances."""
     A, r = kd._check_args("kl_dual_fused_cert", Hs, u, A, r, None,
                           n_steps=SCHEDULE["n_steps"], n_ls=SCHEDULE["n_ls"],
                           polish_steps=polish_steps)
@@ -296,13 +297,17 @@ def run_k2(lib, Hs, u, A=None, r=None, polish_steps=2):
     f64 = dict(dtype=torch.float64, device=dev)
     x = torch.empty((B, n), **f64)
     z = torch.empty((B, k + 1 + A.shape[1]), **f64)
-    gap, ineq, eq = (torch.empty((B,), **f64) for _ in range(3))
+    gap, ineq, eq, nan = (torch.empty((B,), **f64) for _ in range(4))
+    stalled, maxed = (torch.empty((B,), dtype=torch.bool, device=dev)
+                      for _ in range(2))
+    iters = torch.empty((B,), dtype=torch.int64, device=dev)
+    out = (x, z, gap, ineq, eq, stalled, nan, iters, maxed)
     p = _build.ptr
     _build.launch(lib, "kl_dual_fused_cert_f32", "probe_k12", dev, p(Hs),
-                  p(u), p(A), p(r), p(lp), *strides, p(x), p(z), p(gap),
-                  p(ineq), p(eq), B, n, k, A.shape[1], SCHEDULE["n_steps"],
-                  SCHEDULE["z0"], SCHEDULE["n_ls"], polish_steps)
-    return x, z, gap, ineq, eq
+                  p(u), p(A), p(r), p(lp), *strides, *(p(t) for t in out),
+                  B, n, k, A.shape[1], SCHEDULE["n_steps"], SCHEDULE["z0"],
+                  SCHEDULE["n_ls"], polish_steps, 1e-8, 1e-7)
+    return out
 
 
 def same_bits(got, ref):

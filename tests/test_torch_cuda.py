@@ -20,12 +20,18 @@ with the default line search.  K4: max |dL| <= 1e-4 relative to max |L|
 in f32 and 1e-10 in f64, NaN where the plain version has NaN (the lower
 triangle from the failed pivot's column on).
 
+K2's epilogue on the held and group paths writes the stall flag by
+``_stalled``'s rule and the constant leaves, and a certified call through
+``DistKL.solve_certified_batch`` is K2 alone on the card.
+
 The generic core, the fleet screen, the QP family, ``minimize`` and
 resume run on the card against the same calls on the CPU (tolerances at
 each test), and the entry points default to the card.  The parallel
 layer runs on a one-rank NCCL group: the dp certified route through K2
 equal in bits to the local call, and ``tp_chol`` at n = 1024.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -37,7 +43,8 @@ from cvx_tpu_torch.ops.chol import (cholesky_batched,
                                     max_n)
 from cvx_tpu_torch.ops.kl_barrier import (_schedule, kl_barrier_fused,
                                           kl_barrier_fused_plain)
-from cvx_tpu_torch.ops.kl_dual import (kl_dual_fused, kl_dual_fused_cert,
+from cvx_tpu_torch.ops.kl_dual import (_stalled, kl_dual_fused,
+                                       kl_dual_fused_cert,
                                        kl_dual_fused_cert_plain,
                                        kl_dual_fused_plain, path_of)
 
@@ -117,8 +124,8 @@ def test_kernels_match_plain(dev, k, m_eq, n, B, dtype):
     assert float((x - xp)[conv].abs().max()) <= tol
     assert float(((z - zp) / (1.0 + zp.abs()))[conv].abs().max()) <= ztol
     if dtype == torch.float32:
-        xc, zc, gc, ic, ec = kl_dual_fused_cert(Hs, t(U), As, Rs)
-        xq, zq, gq, iq, eq = kl_dual_fused_cert_plain(Hs, t(U), As, Rs)
+        xc, zc, gc, ic, ec, *_ = kl_dual_fused_cert(Hs, t(U), As, Rs)
+        xq, zq, gq, iq, eq, *_ = kl_dual_fused_cert_plain(Hs, t(U), As, Rs)
         ok = gq.abs() <= 1e-8
         assert bool(ok.any())
         assert float((xc - xq)[ok].abs().max()) <= 1e-11
@@ -155,8 +162,8 @@ def test_group_path_sick_and_dead_lanes(dev, case):
     assert bool(live.any())
     assert float((x - xp)[live].abs().max()) <= 1e-5
     assert float(((z - zp) / (1.0 + zp.abs()))[live].abs().max()) <= 1e-4
-    xc, zc, gc, ic, ec = kl_dual_fused_cert(Hs, Ut)
-    xq, zq, gq, iq, eq = kl_dual_fused_cert_plain(Hs, Ut)
+    xc, zc, gc, ic, ec, *_ = kl_dual_fused_cert(Hs, Ut)
+    xq, zq, gq, iq, eq, *_ = kl_dual_fused_cert_plain(Hs, Ut)
     assert torch.equal(torch.isinf(gc), torch.isinf(gq))
     ok = gq.abs() <= 1e-8
     assert bool(ok.any())
@@ -197,6 +204,52 @@ def test_launch_counters_count_kernel_launches_only(dev):
     assert x.shape == (0, 4) and z.shape == (0, 3)
     assert kl_dual_fused.launches == k1 + 1
     torch.cuda.synchronize()
+
+
+def _cert_cases(n, B, dev):
+    """bench.py's family at (n, B) with rows of its own for each instance:
+    instance 1 infeasible (P(B) <= -0.1), instance 2's first row NaN at one
+    coordinate (its x comes out NaN)."""
+    H, U, _, _ = _bench_family(n, B)
+    Hs = torch.tensor(H, dtype=torch.float32, device=dev)[None].repeat(
+        B, 1, 1)
+    Ut = torch.tensor(U, dtype=torch.float32, device=dev)
+    Ut[1, 1] = -0.1
+    Hs[2, 0, 1] = float("nan")
+    return Hs, Ut
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("tol_at", ["gap", "below_gap"])
+@pytest.mark.parametrize("n,B,path", [(100, 10000, "held"),
+                                      (10000, 100, ("group", 16))])
+def test_k2_writes_the_stall_flag_and_the_leaves(dev, n, B, path, tol_at):
+    """K2's stalled is ``_stalled`` on its own x, gap and residuals at the
+    tolerances it is given (instance 0's tol exactly at its |gap|, or the
+    next double below), NaN in x and the infeasible instance flagged; the
+    NaN leaf, iters and maxed_out are the fills; the other outputs do not
+    depend on the tolerances."""
+    assert path_of(3, 2, 0, n, B, torch.float32) == path
+    Hs, U = _cert_cases(n, B, dev)
+    first = kl_dual_fused_cert(Hs, U)
+    g = abs(float(first[2][0]))
+    tol = g if tol_at == "gap" else math.nextafter(g, -math.inf)
+    out = kl_dual_fused_cert(Hs, U, tol=tol, tol_feas=1e-7)
+    x, z, gap, ineq, eq, stalled, nan, iters, maxed = out
+    torch.cuda.synchronize()
+    for a, b in zip(first[:5], out[:5]):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    # at the default tolerances only the infeasible and the NaN instance
+    # stall: the infeasible dual runs off (gap -> -inf) or its lane dies
+    assert torch.equal(first[5], _stalled(x, gap, ineq, 1e-8, 1e-7, eq=eq))
+    assert first[5].nonzero().flatten().tolist() == [1, 2]
+    assert float(gap[1]) < -1.0 or float(gap[1]) == math.inf
+    assert bool(torch.isnan(x[2]).all())
+    assert torch.equal(stalled, _stalled(x, gap, ineq, tol, 1e-7, eq=eq))
+    assert bool(stalled[0]) == (tol_at == "below_gap")
+    assert nan.dtype == torch.float64 and bool(torch.isnan(nan).all())
+    assert iters.dtype == torch.int64 and bool((iters == 18).all())
+    assert maxed.dtype == torch.bool and not bool(maxed.any())
 
 
 def _primal_family(B, n, k, dev, dtype):
@@ -622,3 +675,37 @@ def test_tp_chol_one_nccl_rank(dev, nccl_one_rank):
     assert float((L - torch.linalg.cholesky(H)).abs().max()) < 1e-9
     X = make_sharded_chol_solve(tp, n, block=128)(L, B)
     assert float((X - torch.linalg.solve(H, B)).abs().max()) < 1e-8
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("n,B", [(100, 10000), (10000, 100)])
+def test_certified_call_launches_k2_alone(dev, n, B):
+    """A certified call on the card is one device op, K2, and one
+    ``cert_leaves_fused``.  Last in the file: a profile taken before the
+    one-rank NCCL tests left the next file's profile (test_torch_spans.py)
+    without device events on the card (torch 2.11)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvx_tpu_torch import DistKL, diagnostics
+
+    H, U, _, _ = _bench_family(n, B)
+    model = DistKL.create(n, H=H.astype(np.float32), u=U[0].astype(
+        np.float32), device=dev)
+    u = torch.tensor(U, dtype=torch.float32, device=dev)
+    model.solve_certified_batch(u)       # the library and the log prior
+    torch.cuda.synchronize()
+    before = diagnostics.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sol = model.solve_certified_batch(u)
+        torch.cuda.synchronize()
+    got = diagnostics.counters()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda and not e.is_user_annotation()]
+    assert len(ops) == 3 and all("kl_dual_cert" in o for o in ops), ops
+    assert got["kl_dual_fused_cert"] == before["kl_dual_fused_cert"] + 3
+    assert got["cert_leaves_fused"] == before["cert_leaves_fused"] + 3
+    assert got["cert_leaves_torch"] == before["cert_leaves_torch"]
+    assert not bool(sol.stalled.any())

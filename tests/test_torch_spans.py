@@ -127,15 +127,40 @@ def test_trace_shows_the_spans(tmp_path):
 
 
 def test_counters_and_a_cpu_solve_moves_none():
+    """No launch or build counter moves on the CPU; the certified call's
+    Solution, whose leaves K2's plain version made by the torch rule,
+    counts under ``cert_leaves_torch``."""
     before = diagnostics.counters()
     assert set(before) == {"kl_dual_fused", "kl_dual_fused_cert",
                            "kl_barrier_fused", "kl_gap_fused",
                            "cholesky_batched_cuda", "kl_dual_gap_chain_calls",
+                           "cert_leaves_fused", "cert_leaves_torch",
                            "nvcc_runs", "kernel_loads", "kernel_load_s"}
     model = _model()
     for call, _ in ROUTES.values():
         call(model)
-    assert diagnostics.counters() == before
+    assert diagnostics.counters() == dict(
+        before, cert_leaves_torch=before["cert_leaves_torch"] + 1)
+
+
+@pytest.mark.parametrize("route", [
+    lambda m: m.solve_certified_batch(U, fused_cert=False),
+    lambda m: DistKL.create(N, H=m.H.double(), u=m.u.double(),
+                            device="cpu").solve_certified_batch(U.double()),
+    lambda m: m.solve_certified(),
+    lambda m: m.solve_certified_batch(U)],
+    ids=["fused_cert_false", "f64_model", "solve_certified", "cpu_k2"])
+def test_certified_routes_off_the_card_count_torch_leaves(route):
+    """The f64 route (K1 + ``kl_certify``: asked for, or an f64 model's
+    default), ``solve_certified`` and the CPU count one
+    ``cert_leaves_torch`` a call and never ``cert_leaves_fused``."""
+    model = _model()
+    before = diagnostics.counters()
+    route(model)
+    route(model)
+    got = diagnostics.counters()
+    assert got["cert_leaves_torch"] == before["cert_leaves_torch"] + 2
+    assert got["cert_leaves_fused"] == before["cert_leaves_fused"]
 
 
 def test_build_counters_count_builds_and_loads(monkeypatch, tmp_path):
