@@ -357,8 +357,9 @@ def compare_k3(name, dtype, args, ls, kern, plain, prob=None, pars=None):
           f"{float(cand.double().mean()) / steps:.4f}")
     check(dx <= tol, f"K3 {name}: max|dx| <= {tol:g}")
     if prob is not None:
-        sk = prob._fused_solution(args[1], xk, pars)
-        sp = prob._fused_solution(args[1], xp, pars)
+        schedule = prob._fused_schedule(pars)
+        sk = prob._fused_solution(args[1], xk, schedule)
+        sp = prob._fused_solution(args[1], xp, schedule)
         dg = float((sk.duality_gap - sp.duality_gap).abs().max())
         print(f"  K3 {name}: max|gap| kernel {float(sk.duality_gap.abs().max()):.3e}"
               f", plain {float(sp.duality_gap.abs().max()):.3e}; max|dgap| "
@@ -1361,11 +1362,8 @@ def main() -> int:
     # chol.cu, kl_gap.cu), all started together
     t0 = time.perf_counter()
     libs = _build.build_all()
-    for fn in _build.KL_DUAL_SIGNATURES:
-        _build.load_kl_dual(fn)
-    _build.load_kl_barrier()
-    _build.load_chol()
-    _build.load_kl_gap()
+    for unit in _build.UNITS:
+        _build.load(unit)
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{[p.name for p in libs]}")
 

@@ -43,7 +43,7 @@ from .._spans import span
 from ..duality import _polish_dual, _small_solve, solve_dual
 from ..ops.kl_barrier import fused_final_t, fused_n_outer, kl_barrier_fused
 from ..ops.kl_dual import (_FUSED_MAX_DIM, _cert_leaves, _certify_f64, _Ctx,
-                           _polish_f64, _residuals, _solve_small, _stalled,
+                           _polish_f64, _residuals, _solve_small,
                            _uniform_log_prior, kl_dual_fused,
                            kl_dual_fused_cert)
 from ..ops.kl_gap import (_NegDualObjective, _prior_terms, kl_gap_fused,
@@ -221,27 +221,43 @@ def kl_certify(H, u, A, b, x, *, z0=None, polish_steps=6, prior=None,
         lam=zt[:, :k], nu=zt[:, k:])
 
 
+def _kl_solution(x, lam, nu, gap, ineq, steps, *, eq=None, tol=None,
+                 leaves=None, norm_grad=None) -> Solution:
+    """A KL route's batched Solution.  ``leaves``: the per-instance
+    ``(stalled, nan, iters, maxed_out)`` as K2 (or its plain version) wrote
+    them, taken as they are; without them ``_cert_leaves`` makes them, with
+    iters = ``steps``.  The certified routes give the certificate's ``eq``
+    (the eq_gap leaf, and it joins the stall test) and ``tol`` = (tol,
+    tol_feas); the others report |sum x - 1| and stall at sqrt(eps) of x's
+    dtype.  The NaN leaf stands for every field the route does not measure
+    (``norm_grad`` unless given)."""
+    if leaves is None:
+        if tol is None:
+            tol = (math.sqrt(torch.finfo(x.dtype).eps),) * 2
+        leaves = _cert_leaves(x, gap, ineq, *tol, steps, eq=eq)
+    stalled, nan, iters, maxed = leaves
+    if eq is None:
+        eq = torch.abs(torch.sum(x, dim=-1) - 1.0)
+    return Solution(
+        x=x, lam=lam, nu=nu, newton_decrement=nan, duality_gap=gap,
+        eq_gap=eq, norm_grad=nan if norm_grad is None else norm_grad,
+        norm_dual_residual=nan, iters=iters, maxed_out=maxed,
+        stalled=stalled, ineq_res=ineq)
+
+
 @span("cvx.route.cert_solution")
 def _cert_solution(cert, pars, iters, leaves=None):
-    """Batched Solution from certificate leaves.  ``leaves``: K2's
-    per-instance ``(stalled, nan, iters, maxed_out)`` where the kernel (or,
-    on the CPU, its plain version) wrote them, taken as they are; without
-    them, the stall rule and the fills in torch.  Counts the calls whose
-    leaves K2 wrote on the card (``_cert_solution.leaves_fused``) and the
-    others (``.leaves_torch``)."""
-    x, gap, ineq, eq = cert.x, cert.gap, cert.ineq_res, cert.eq_res
-    if leaves is not None and x.is_cuda:
+    """The certified routes' Solution from a certificate (``_kl_solution``
+    at ``pars.tol`` / ``pars.tol_feas``); ``leaves`` as K2 wrote them.
+    Counts the calls whose leaves K2 wrote on the card
+    (``_cert_solution.leaves_fused``) and the others (``.leaves_torch``)."""
+    if leaves is not None and cert.x.is_cuda:
         _cert_solution.leaves_fused += 1
     else:
         _cert_solution.leaves_torch += 1
-    if leaves is None:
-        leaves = _cert_leaves(x, gap, ineq, eq, pars.tol, pars.tol_feas,
-                              iters)
-    stalled, nan, iters, maxed = leaves
-    return Solution(
-        x=x, lam=cert.lam, nu=cert.nu, newton_decrement=nan,
-        duality_gap=gap, eq_gap=eq, norm_grad=nan, norm_dual_residual=nan,
-        iters=iters, maxed_out=maxed, stalled=stalled, ineq_res=ineq)
+    return _kl_solution(cert.x, cert.lam, cert.nu, cert.gap, cert.ineq_res,
+                        iters, eq=cert.eq_res, tol=(pars.tol, pars.tol_feas),
+                        leaves=leaves)
 
 
 _cert_solution.leaves_fused = 0
@@ -386,9 +402,6 @@ class DistKL:
                 x @ self.H.T - (self.u if u is None else u), 0.0), dim=-1))
         return viol
 
-    def _nan(self, B):
-        return torch.full((B,), math.nan, **self._opts())
-
     # ---------------------------------------------------------- dual routes
     def _dual_newton_batch(self, u, pars, steps=30, r=None) -> Solution:
         """solve_dual_newton with per-instance bounds u (B, k) (and r
@@ -401,17 +414,9 @@ class DistKL:
         x = y / torch.sum(y, dim=-1, keepdim=True)
         # f(x) - g(z), measured
         gap = self.objective.value(x) + d.value(z)
-        ineq = self._ineq_res(x, u)
-        tol = math.sqrt(torch.finfo(x.dtype).eps)
-        nan = self._nan(B)
-        return Solution(
-            x=x, lam=z[:, :k], nu=z[:, k:], newton_decrement=nan,
-            duality_gap=gap, eq_gap=torch.abs(torch.sum(x, dim=-1) - 1.0),
-            norm_grad=torch.linalg.vector_norm(d.grad(z), dim=-1),
-            norm_dual_residual=nan,
-            iters=torch.full((B,), steps, device=x.device),
-            maxed_out=torch.zeros(B, dtype=torch.bool, device=x.device),
-            stalled=_stalled(x, gap, ineq, tol, tol), ineq_res=ineq)
+        return _kl_solution(
+            x, z[:, :k], z[:, k:], gap, self._ineq_res(x, u), steps,
+            norm_grad=torch.linalg.vector_norm(d.grad(z), dim=-1))
 
     def solve_dual_newton(self, pars: SolverParams | None = None,
                           steps: int = 30) -> Solution:
@@ -437,16 +442,8 @@ class DistKL:
             self.A[None].expand(B, m_eq, self.n) if m_eq > 0 else None,
             rb if m_eq > 0 else None,
             log_prior=lp, n_steps=steps, z0=float(pars.dual_start))
-        tol = math.sqrt(torch.finfo(x.dtype).eps)
-        ineq = self._ineq_res(x, u)
-        nan = self._nan(B)
-        return Solution(
-            x=x, lam=z[:, :k], nu=z[:, k:], newton_decrement=nan,
-            duality_gap=gap, eq_gap=torch.abs(torch.sum(x, dim=-1) - 1.0),
-            norm_grad=nan, norm_dual_residual=nan,
-            iters=torch.full((B,), steps, device=x.device),
-            maxed_out=torch.zeros(B, dtype=torch.bool, device=x.device),
-            stalled=_stalled(x, gap, ineq, tol, tol), ineq_res=ineq)
+        return _kl_solution(x, z[:, :k], z[:, k:], gap, self._ineq_res(x, u),
+                            steps)
 
     def solve_dual_fused(self, pars: SolverParams | None = None,
                          steps: int = 16) -> Solution:
@@ -545,46 +542,38 @@ class DistKL:
         of the reference)."""
         k, n, B = self.H.shape[0], self.n, u.shape[0]
         ones = torch.ones((1, 1, n), **self._opts())
+        schedule = self._fused_schedule(pars)
         x = kl_barrier_fused(
             self.H[None].expand(B, k, n), u, ones.expand(B, 1, n),
             ones[0, :, :1].expand(B, 1), x0, mu=float(pars.mu),
-            tol=float(pars.tol), n_inner=self._fused_n_inner(pars))
-        return self._fused_solution(u, x, pars)
+            n_outer=schedule[0], n_inner=schedule[1])
+        return self._fused_solution(u, x, schedule)
 
-    @staticmethod
-    def _fused_n_inner(pars) -> int:
-        # the fixed schedule's n_inner: pars.max_iter (default 1000) caps
-        # the iterative solvers' inner loops, not a step count here
-        return min(int(pars.max_iter), 8)
+    def _fused_schedule(self, pars) -> tuple[int, int, float]:
+        """K3's fixed schedule: (n_outer, n_inner, the final t)."""
+        m, mu, tol = self.H.shape[0] + self.n, float(pars.mu), float(pars.tol)
+        n_outer = fused_n_outer(m, mu=mu, tol=tol)
+        # pars.max_iter (default 1000) caps the iterative solvers' inner
+        # loops, not a step count here
+        return (n_outer, min(int(pars.max_iter), 8),
+                fused_final_t(m, mu=mu, tol=tol, n_outer=n_outer))
 
     @span("cvx.route.fused_solution")
-    def _fused_solution(self, u, x, pars) -> Solution:
-        """The fused route's Solution for K3's x (B, n) on bounds u (B, k):
-        the measured gap, its duals and the stall rule."""
+    def _fused_solution(self, u, x, schedule) -> Solution:
+        """The fused route's Solution for K3's x (B, n) on bounds u (B, k)
+        after ``schedule`` (``_fused_schedule``): the measured gap, its
+        duals and the stall rule."""
         k, n, B = self.H.shape[0], self.n, u.shape[0]
+        n_outer, n_inner, t_final = schedule
         ones = torch.ones((1, 1, n), **self._opts())
-        n_inner = self._fused_n_inner(pars)
-        m = k + n
-        n_outer = fused_n_outer(m, mu=float(pars.mu), tol=float(pars.tol))
-        t_final = fused_final_t(m, mu=float(pars.mu), tol=float(pars.tol),
-                                n_outer=n_outer)
         # the MEASURED gap at the returned iterate, not the central-path m/t
         gap, z = kl_dual_gap(self.H, u, ones[0], ones[0, :, :1].expand(B, 1),
                              x, prior=self.prior)
-        eps = torch.finfo(x.dtype).eps
         # |gap| and the violation: an iterate the kernel could not move has
         # f(x0) < p*, a negative gap a one-sided test calls healthy
-        ineq = self._ineq_res(x, u)
-        nan = self._nan(B)
-        return Solution(
-            x=x, lam=torch.cat([z[:, :k], 1.0 / (t_final * x)], dim=1),
-            nu=z[:, k:], newton_decrement=nan, duality_gap=gap,
-            eq_gap=torch.abs(torch.sum(x, dim=-1) - 1.0), norm_grad=nan,
-            norm_dual_residual=nan,
-            iters=torch.full((B,), n_outer * n_inner, device=x.device),
-            maxed_out=torch.zeros(B, dtype=torch.bool, device=x.device),
-            stalled=_stalled(x, gap, ineq, math.sqrt(eps), math.sqrt(eps)),
-            ineq_res=ineq)
+        return _kl_solution(
+            x, torch.cat([z[:, :k], 1.0 / (t_final * x)], dim=1), z[:, k:],
+            gap, self._ineq_res(x, u), n_outer * n_inner)
 
     @span("cvx.entry.solve_jittable_batch")
     def solve_jittable_batch(self, u, feasible_points,

@@ -10,7 +10,11 @@ nor a compiler for them.  A failed build raises with nvcc's output.
 ``build_all`` starts one nvcc per unit at once and waits for all of them.
 A unit is a source with the flags that select its part: ``kl_dual.cu``'s
 three entry points (60-odd template instances, which nvcc compiles one
-after another) are three units, so that they build on three cores.
+after another) are three units, so that they build on three cores, and
+the units of one source are built together at the first ``load`` of any.
+``UNITS`` lists each unit's source, flags, entry points with their ctypes
+argument types, and error-string function; ``load(unit)`` builds and
+binds it.
 
 Counters, read through ``diagnostics.counters()``: ``nvcc_runs`` (unit ->
 the nvcc runs started for it in this process), ``kernel_loads`` and
@@ -31,6 +35,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 from .._spans import span
 
@@ -38,20 +43,47 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
-# unit -> (source, further nvcc flags)
-UNITS = {"kl_dual_cert": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=3",)),
-         "kl_dual_f64": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=2",)),
-         "kl_dual_f32": ("kl_dual.cu", ("-DKL_DUAL_ENTRY=1",)),
-         "kl_barrier": ("kl_barrier.cu", ()),
-         "chol": ("chol.cu", ()),
-         "kl_gap": ("kl_gap.cu", ())}
+_P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_double)
+
+
+class _Unit(NamedTuple):
+    source: str          # under csrc/
+    flags: tuple         # further nvcc flags
+    entries: dict        # entry point -> ctypes argument types
+    error_fn: str        # the library's error-string function
+
+
+_ROWS = [_P] * 5 + [_I64] * 8             # Hs, u, A, r, log_prior; strides
+_K1 = _ROWS + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
+_K2 = _ROWS + [_P] * 9 + [_I32] * 5 + [_F64, _I32, _I32, _F64, _F64, _P]
+_K3 = [_P] * 5 + [_I64] * 7 + [_P] * 4 + [_I32] * 6 + [_P] + [_F64] * 2 + [_P]
+_GAP = ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P, _I64]
+        + [_P] * 2 + [_F64] * 2 + [_P] * 2 + [_I32] * 5 + [_F64, _P])
+_K4 = [_P, _I64, _I64, _P, _I32, _I32, _P]
+UNITS = {
+    "kl_dual_cert": _Unit("kl_dual.cu", ("-DKL_DUAL_ENTRY=3",),
+                          {"kl_dual_fused_cert_f32": _K2},
+                          "kl_dual_error_string"),
+    "kl_dual_f64": _Unit("kl_dual.cu", ("-DKL_DUAL_ENTRY=2",),
+                         {"kl_dual_fused_f64": _K1}, "kl_dual_error_string"),
+    "kl_dual_f32": _Unit("kl_dual.cu", ("-DKL_DUAL_ENTRY=1",),
+                         {"kl_dual_fused_f32": _K1}, "kl_dual_error_string"),
+    "kl_barrier": _Unit("kl_barrier.cu", (),
+                        {"kl_barrier_fused_f32": _K3,
+                         "kl_barrier_fused_f64": _K3},
+                        "kl_barrier_error_string"),
+    "chol": _Unit("chol.cu", (), {"chol_batched_f32": _K4,
+                                  "chol_batched_f64": _K4},
+                  "chol_error_string"),
+    "kl_gap": _Unit("kl_gap.cu", (), {"kl_gap_fused_f32": _GAP,
+                                      "kl_gap_fused_f64": _GAP},
+                    "kl_gap_error_string")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 nvcc_runs: dict[str, int] = {}
 kernel_loads = 0
 kernel_load_s = 0.0
-_P, _I64, _I32, _F64 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_double)
 
 
 def _nvcc() -> str:
@@ -63,11 +95,11 @@ def _nvcc() -> str:
 
 
 def _target(unit: str) -> tuple[Path, tuple, Path]:
-    source, flags = UNITS[unit]
-    src = _CSRC / source
+    row = UNITS[unit]
+    src = _CSRC / row.source
     digest = hashlib.sha256(src.read_bytes() + " ".join(
-        NVCC_FLAGS + flags).encode()).hexdigest()[:16]
-    return src, flags, BUILD_DIR / f"{unit}_{digest}.so"
+        NVCC_FLAGS + row.flags).encode()).hexdigest()[:16]
+    return src, row.flags, BUILD_DIR / f"{unit}_{digest}.so"
 
 
 def _start(src: Path, flags: tuple, out: Path):
@@ -125,66 +157,22 @@ def bind(path, signatures: dict, error_fn: str) -> ctypes.CDLL:
     return lib
 
 
-def _load(unit: str, signatures: dict, error_fn: str,
-          build: tuple = ()) -> ctypes.CDLL:
-    """The library of ``unit``, built (with the units of ``build`` beside
-    it) and bound at first use."""
+def load(unit: str) -> ctypes.CDLL:
+    """The library of ``unit``, built (with the other units of its source
+    beside it) and bound at first use."""
     global kernel_loads, kernel_load_s
     lib = _libs.get(unit)
     if lib is None:
         with span("cvx.build.load"):
             t0 = time.perf_counter()
-            units = build or (unit,)
+            row = UNITS[unit]
+            units = tuple(u for u, r in UNITS.items()
+                          if r.source == row.source)
             path = build_all(units)[units.index(unit)]
-            lib = _libs[unit] = bind(path, signatures, error_fn)
+            lib = _libs[unit] = bind(path, row.entries, row.error_fn)
             kernel_loads += 1
             kernel_load_s += time.perf_counter() - t0
     return lib
-
-
-_ROWS = [_P] * 5 + [_I64] * 8             # Hs, u, A, r, log_prior; strides
-_K1 = _ROWS + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
-KL_DUAL_SIGNATURES = {
-    "kl_dual_fused_f32": _K1, "kl_dual_fused_f64": _K1,
-    "kl_dual_fused_cert_f32": (_ROWS + [_P] * 9 + [_I32] * 5
-                               + [_F64, _I32, _I32, _F64, _F64, _P])}
-_KL_DUAL_UNITS = {"kl_dual_fused_f32": "kl_dual_f32",
-                  "kl_dual_fused_f64": "kl_dual_f64",
-                  "kl_dual_fused_cert_f32": "kl_dual_cert"}
-_KL_DUAL_BUILD = tuple(_KL_DUAL_UNITS.values())
-
-
-def load_kl_dual(fn: str) -> ctypes.CDLL:
-    """The library that holds the K1/K2 entry ``fn`` (``csrc/kl_dual.cu``,
-    one library per entry); the three are built together on first call."""
-    return _load(_KL_DUAL_UNITS[fn], {fn: KL_DUAL_SIGNATURES[fn]},
-                 "kl_dual_error_string", build=_KL_DUAL_BUILD)
-
-
-def load_kl_barrier() -> ctypes.CDLL:
-    """The K3 library (``csrc/kl_barrier.cu``), built on first call."""
-    sig = ([_P] * 5 + [_I64] * 7 + [_P] * 4 + [_I32] * 6 + [_P]
-           + [_F64] * 2 + [_P])
-    return _load("kl_barrier", {"kl_barrier_fused_f32": sig,
-                                   "kl_barrier_fused_f64": sig},
-                 "kl_barrier_error_string")
-
-
-def load_kl_gap() -> ctypes.CDLL:
-    """The certificate's library (``csrc/kl_gap.cu``), built on first
-    call."""
-    sig = ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P, _I64]
-           + [_P] * 2 + [_F64] * 2 + [_P] * 2 + [_I32] * 5 + [_F64, _P])
-    return _load("kl_gap", {"kl_gap_fused_f32": sig, "kl_gap_fused_f64": sig},
-                 "kl_gap_error_string")
-
-
-def load_chol() -> ctypes.CDLL:
-    """The K4 library (``csrc/chol.cu``), built on first call."""
-    sig = [_P, _I64, _I64, _P, _I32, _I32, _P]
-    return _load("chol", {"chol_batched_f32": sig,
-                             "chol_batched_f64": sig},
-                 "chol_error_string")
 
 
 def launch(lib: ctypes.CDLL, fn: str, name: str, device, *args) -> None:

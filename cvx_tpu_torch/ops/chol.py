@@ -115,7 +115,7 @@ def cholesky_batched_cuda(x: torch.Tensor) -> torch.Tensor:
     if B == 0 or n == 0:
         return L
     fn = "chol_batched_f32" if x.dtype == torch.float32 else "chol_batched_f64"
-    _build.launch(_build.load_chol(), fn, "cholesky_batched_cuda", x.device,
+    _build.launch(_build.load("chol"), fn, "cholesky_batched_cuda", x.device,
                   _build.ptr(x), x.stride(0), x.stride(1), _build.ptr(L), B,
                   n)
     cholesky_batched_cuda.launches += 1

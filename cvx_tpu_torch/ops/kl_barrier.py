@@ -334,7 +334,7 @@ def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     fn = ("kl_barrier_fused_f32" if dtype == torch.float32
           else "kl_barrier_fused_f64")
     ptr = _build.ptr
-    _build.launch(_build.load_kl_barrier(), fn, "kl_barrier_fused", dev,
+    _build.launch(_build.load("kl_barrier"), fn, "kl_barrier_fused", dev,
                   ptr(Hs), ptr(u), ptr(A), ptr(b), ptr(x0), *strides,
                   ptr(ts), ptr(ls_ts), ptr(x), ptr(scratch), B, n, k,
                   n_outer, n_inner, n_ls, ptr(lognv), default_delta(dtype),

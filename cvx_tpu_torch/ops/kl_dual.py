@@ -595,13 +595,14 @@ def _stalled(x, gap, ineq, tol, tol_feas, eq=None):
     return ~torch.all(torch.isfinite(x), dim=-1) | ~ok
 
 
-def _cert_leaves(x, gap, ineq, eq, tol, tol_feas, steps):
-    """The certified Solution's per-instance leaves by the torch rule, as
-    K2's epilogue writes them: ``(stalled, nan, iters, maxed_out)``, the
-    NaN leaf f64 and iters int64."""
+def _cert_leaves(x, gap, ineq, tol, tol_feas, steps, eq=None):
+    """A KL route's per-instance Solution leaves by the torch rule, as K2's
+    epilogue writes them: ``(stalled, nan, iters, maxed_out)``, stalled by
+    ``_stalled`` (``eq`` joins it where given), the NaN leaf in x's dtype
+    (f64 on the certified routes) and iters int64."""
     dev = x.device
     return (_stalled(x, gap, ineq, tol, tol_feas, eq=eq),
-            torch.full(gap.shape, math.nan, dtype=torch.float64, device=dev),
+            torch.full(gap.shape, math.nan, dtype=x.dtype, device=dev),
             torch.full(gap.shape, steps, device=dev),
             torch.zeros(gap.shape, dtype=torch.bool, device=dev))
 
@@ -634,8 +635,8 @@ def kl_dual_fused_cert_plain(Hs, u, A=None, r=None, log_prior=None, *,
                     guard_sick=True)
     x, gap, ineq, eq, _ = _certify_f64(ctx, z)
     return (x, torch.stack(z, dim=1), gap, ineq, eq,
-            *_cert_leaves(x, gap, ineq, eq, tol, tol_feas,
-                          n_steps + polish_steps))
+            *_cert_leaves(x, gap, ineq, tol, tol_feas, n_steps + polish_steps,
+                          eq=eq))
 
 
 # --------------------------------------------------------------- wrappers
@@ -670,10 +671,6 @@ def _kernel_args(name, dtype, tensors, log_prior, lp_dtype):
     return (Hs.stride(0), Hs.stride(1), u.stride(0), u.stride(1)) + rows
 
 
-def _launch(fn, name, dev, *args):
-    _build.launch(_build.load_kl_dual(fn), fn, name, dev, *args)
-
-
 @span("cvx.kernel.kl_dual_fused")
 def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
                   z0=1e-3, n_ls=5):
@@ -705,13 +702,14 @@ def kl_dual_fused(Hs, u, A=None, r=None, log_prior=None, *, n_steps=16,
     z = torch.empty((B, dim), dtype=Hs.dtype, device=Hs.device)
     if B == 0:
         return x, gap, z
-    fn = ("kl_dual_fused_f32" if Hs.dtype == torch.float32
-          else "kl_dual_fused_f64")
+    unit, fn = (("kl_dual_f32", "kl_dual_fused_f32")
+                if Hs.dtype == torch.float32
+                else ("kl_dual_f64", "kl_dual_fused_f64"))
     ptr = _build.ptr
-    _launch(fn, "kl_dual_fused", Hs.device,
-            ptr(Hs), ptr(u), ptr(A), ptr(r), ptr(log_prior), *strides,
-            ptr(x), ptr(gap), ptr(z), B, n, k, A.shape[1], n_steps,
-            float(z0), n_ls)
+    _build.launch(_build.load(unit), fn, "kl_dual_fused", Hs.device,
+                  ptr(Hs), ptr(u), ptr(A), ptr(r), ptr(log_prior), *strides,
+                  ptr(x), ptr(gap), ptr(z), B, n, k, A.shape[1], n_steps,
+                  float(z0), n_ls)
     kl_dual_fused.launches += 1
     return x, gap, z
 
@@ -761,11 +759,12 @@ def kl_dual_fused_cert(Hs, u, A=None, r=None, log_prior=None, *,
     if B == 0:
         return out
     ptr = _build.ptr
-    _launch("kl_dual_fused_cert_f32", "kl_dual_fused_cert", dev,
-            ptr(Hs), ptr(u), None if A is None else ptr(A),
-            None if r is None else ptr(r), ptr(log_prior), *strides,
-            *(ptr(t) for t in out), B, n, k, m_eq, n_steps, float(z0), n_ls,
-            polish_steps, float(tol), float(tol_feas))
+    _build.launch(_build.load("kl_dual_cert"), "kl_dual_fused_cert_f32",
+                  "kl_dual_fused_cert", dev,
+                  ptr(Hs), ptr(u), None if A is None else ptr(A),
+                  None if r is None else ptr(r), ptr(log_prior), *strides,
+                  *(ptr(t) for t in out), B, n, k, m_eq, n_steps, float(z0),
+                  n_ls, polish_steps, float(tol), float(tol_feas))
     kl_dual_fused_cert.launches += 1
     return out
 

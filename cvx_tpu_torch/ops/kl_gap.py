@@ -206,7 +206,7 @@ def kl_gap_fused(H, u, A, b, x, polish_steps: int = 8,
     logp, R = (None, None) if terms is None else (ptr(t) for t in terms)
     fn = "kl_gap_fused_f32" if x.dtype == torch.float32 else \
         "kl_gap_fused_f64"
-    _build.launch(_build.load_kl_gap(), fn, "kl_gap_fused", x.device,
+    _build.launch(_build.load("kl_gap"), fn, "kl_gap_fused", x.device,
                   ptr(H), H.stride(0), ptr(u), u.stride(0), u.stride(1),
                   ptr(A), A.stride(0), ptr(b), b.stride(0), b.stride(1),
                   ptr(x), x.stride(0), logp, R, *_uniform_terms(n),

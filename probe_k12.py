@@ -54,7 +54,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -68,23 +67,37 @@ from cvx_tpu_torch._bench import (K1_DZ, K1_F64_DZ, K1_F64_TOL, K1_TOL,
                                   k2_agreement, k2_ops64_per_coord)
 from cvx_tpu_torch.ops import _build
 from cvx_tpu_torch.ops import kl_dual as kd
+from probe_common import BUILD, build, card, parse_ptxas, same_bits, \
+    sass_loops, say, write_log
 
 ROOT = Path(__file__).resolve().parent
-BUILD = ROOT / "_probe" / "build"
 CASE = re.compile(r"KL_K[12]_CASE\((\d+)\)")
 SCHEDULE = dict(n_steps=16, z0=1e-3, n_ls=5)
 # variants whose results are wrong: only their times are read
 TIME_ONLY = ("nobfly", "nosolve")
-
-
-_LOG = []
-
-
-def say(*parts):
-    """print, and keep the line for ``DIR/log.txt``."""
-    line = " ".join(str(p) for p in parts)
-    print(line, flush=True)
-    _LOG.append(line)
+# ptxas's kernel instances and the functions behind a call boundary
+# ("K1 f dim=3 NC=4", "K1 f dim=9 group", "newton_z f dim=3 NC=4 lp=d",
+# ...); a newton_z / newton_group has no register count of its own
+KERNELS = ((r"kl_dual_kernelILi(\d+)ELi(\d+)E([fd])",
+            lambda m: f"K1 {m[3]} dim={m[1]} NC={m[2]}"),
+           (r"kl_dual_cert_kernelILi(\d+)ELi(\d+)EE",
+            lambda m: f"K2 dim={m[1]} NC={m[2]}"),
+           (r"newton_zILi(\d+)ELi(\d+)E([fd])f?([fd])",
+            lambda m: f"newton_z {m[3]} dim={m[1]} NC={m[2]} lp={m[4]}"),
+           (r"kl_dual_group_kernelILi(\d+)E([fd])Lb([01])E",
+            lambda m: f"K1 {m[2]} dim={m[1]} group"
+                      + (" one-warp" if m[3] == "1" else "")),
+           (r"kl_dual_cert_group_kernelILi(\d+)ELb([01])E",
+            lambda m: f"K2 dim={m[1]} group"
+                      + (" one-warp" if m[2] == "1" else "")),
+           (r"newton_groupILi(\d+)E([fd])[fd]([fd])",
+            lambda m: f"newton_group {m[2]} dim={m[1]} lp={m[3]}"),
+           # an earlier source: no NC parameter
+           (r"kl_dual_kernelILi(\d+)E([fd])",
+            lambda m: f"K1 {m[2]} dim={m[1]}"),
+           (r"kl_dual_cert_kernelILi(\d+)EE", lambda m: f"K2 dim={m[1]}"),
+           (r"newton_zILi(\d+)E([fd])f?([fd])",
+            lambda m: f"newton_z {m[2]} dim={m[1]} lp={m[3]}"))
 
 
 def variants(baseline, dims, only):
@@ -169,100 +182,6 @@ def variants(baseline, dims, only):
     return out
 
 
-def parse_ptxas(report):
-    """{"K1 f dim=3 NC=4": {"regs": r, "spill": "stores/loads", "stack":
-    s}, "K1 f dim=9 group": ..., ...}; a ``newton_z`` / ``newton_group``
-    behind its call boundary has no register count of its own."""
-    names = ((r"kl_dual_kernelILi(\d+)ELi(\d+)E([fd])",
-              lambda m: f"K1 {m[3]} dim={m[1]} NC={m[2]}"),
-             (r"kl_dual_cert_kernelILi(\d+)ELi(\d+)EE",
-              lambda m: f"K2 dim={m[1]} NC={m[2]}"),
-             (r"newton_zILi(\d+)ELi(\d+)E([fd])f?([fd])",
-              lambda m: f"newton_z {m[3]} dim={m[1]} NC={m[2]} lp={m[4]}"),
-             (r"kl_dual_group_kernelILi(\d+)E([fd])Lb([01])E",
-              lambda m: f"K1 {m[2]} dim={m[1]} group"
-                        + (" one-warp" if m[3] == "1" else "")),
-             (r"kl_dual_cert_group_kernelILi(\d+)ELb([01])E",
-              lambda m: f"K2 dim={m[1]} group"
-                        + (" one-warp" if m[2] == "1" else "")),
-             (r"newton_groupILi(\d+)E([fd])[fd]([fd])",
-              lambda m: f"newton_group {m[2]} dim={m[1]} lp={m[3]}"),
-             # an earlier source: no NC parameter
-             (r"kl_dual_kernelILi(\d+)E([fd])",
-              lambda m: f"K1 {m[2]} dim={m[1]}"),
-             (r"kl_dual_cert_kernelILi(\d+)EE", lambda m: f"K2 dim={m[1]}"),
-             (r"newton_zILi(\d+)E([fd])f?([fd])",
-              lambda m: f"newton_z {m[2]} dim={m[1]} lp={m[3]}"))
-    res, cur = {}, None
-    for line in report.splitlines():
-        if "Function properties for" in line or "Compiling entry" in line:
-            cur = None
-            for pat, label in names:
-                m = re.search(pat, line)
-                if m:
-                    cur = res.setdefault(label(m), {})
-                    break
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and cur is not None:
-            cur["stack"], cur["spill"] = int(m[1]), f"{m[2]}/{m[3]}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["regs"] = int(m[1])
-    return res
-
-
-def build(srcs, out):
-    BUILD.mkdir(parents=True, exist_ok=True)
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in srcs.items():
-        cu = BUILD / f"{name}.cu"
-        cu.write_text(src)
-        procs[name] = (time.perf_counter(), subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(BUILD / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (t0, proc) in procs.items():
-        report, _ = proc.communicate()
-        (out / f"ptxas_{name}.txt").write_text(report)
-        if proc.returncode:
-            say(f"nvcc FAILED on {name}:\n{report[-3000:]}")
-            continue
-        say(f"ptxas {name} (done {time.perf_counter() - t0:.0f} s after "
-              "the start)", json.dumps(parse_ptxas(report), sort_keys=True))
-        libs[name] = _build.bind(BUILD / f"{name}.so",
-                                 _build.KL_DUAL_SIGNATURES,
-                                 "kl_dual_error_string")
-    return libs
-
-
-def sass_step_loop(so, kernel):
-    """Instructions of the largest loop (a backward branch and its span)
-    in the SASS of the function whose mangled name holds ``kernel``:
-    (total, {opcode: count}); ``newton_z`` behind its call boundary is
-    listed inside the kernel that calls it."""
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
-        capture_output=True, text=True, check=True).stdout
-    best = (0, {})
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        if kernel not in fn.split("\n", 1)[0]:
-            continue
-        ins = [(int(m[1], 16), m[2], m[3]) for m in re.finditer(
-            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)[.\w]*"
-            r"(.*?);", fn)]
-        for addr, op, rest in ins:
-            t = re.search(r"0x([0-9a-f]+)", rest)
-            if op == "BRA" and t and int(t[1], 16) < addr:
-                body = [o for a, o, _ in ins if int(t[1], 16) <= a <= addr]
-                if len(body) > best[0]:
-                    ops = {o: body.count(o) for o in sorted(set(body))}
-                    best = (len(body), ops)
-    return best
-
-
 def run_k1(lib, Hs, u, A=None, r=None):
     """``kl_dual_fused`` on the library ``lib``: (x, gap, z)."""
     A, r = kd._check_args("kl_dual_fused", Hs, u, A, r, None,
@@ -308,16 +227,6 @@ def run_k2(lib, Hs, u, A=None, r=None, polish_steps=2):
                   B, n, k, A.shape[1], SCHEDULE["n_steps"], SCHEDULE["z0"],
                   SCHEDULE["n_ls"], polish_steps, 1e-8, 1e-7)
     return out
-
-
-def same_bits(got, ref):
-    """Every tensor of ``got`` equal to ``ref``'s, NaN in the same
-    places (inf compares equal to itself)."""
-    for a, b in zip(got, ref):
-        na, nb = torch.isnan(a), torch.isnan(b)
-        if not (torch.equal(na, nb) and torch.equal(a[~na], b[~nb])):
-            return False
-    return True
 
 
 def max_abs(d, lanes):
@@ -376,22 +285,22 @@ def main() -> int:
         print("probe_k12: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = card()
     dims = (None if args.dims == "all"
             else {int(d) for d in args.dims.split(",")})
     t0 = time.perf_counter()
     libs = build(variants(args.baseline, dims,
-                          set(args.only.split(",")) - {""}), args.out)
+                          set(args.only.split(",")) - {""}), args.out,
+                 "kl_dual.cu", lambda name, report: parse_ptxas(
+                     report, KERNELS, ("regs", "spill", "stack")))
     say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
     ref_name = "baseline" if "baseline" in libs else "committed"
     if args.sass:
         for name, key in (("committed", "kl_dual_kernelILi3ELi4EfEE"),
                           ("baseline", "kl_dual_kernelILi3EfEE")):
             if name in libs:
-                total, ops = sass_step_loop(BUILD / f"{name}.so", key)
+                total, ops = max(sass_loops(BUILD / f"{name}.so", key),
+                                 key=lambda loop: loop[0], default=(0, {}))
                 say(f"sass {name} K1 f32 dim 3 step loop: {total} "
                     f"instructions {json.dumps(ops)}")
 
@@ -459,7 +368,7 @@ def main() -> int:
         f"{sorted(differing - {'committed'}) or 'none'}; variants that "
         f"fail a check: {sorted(failing - {'committed'}) or 'none'}")
     if not args.time:
-        (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+        write_log(args.out)
         return 0 if ok else 1
 
     for cname, kernels, a in time_cases(dev):
@@ -517,7 +426,7 @@ def main() -> int:
             say(f"time {kname} {cname}: " + ", ".join(
                 f"{name} {min(v):.4f}" for name, v in runs.items())
                 + f"; bound {bms:.5f} ({by})")
-    (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+    write_log(args.out)
     return 0 if ok else 1
 
 

@@ -28,11 +28,8 @@ nvcc's full reports to ``DIR/ptxas_<variant>.txt`` and the whole log to
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import math
-import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -44,12 +41,10 @@ from cvx_tpu_torch._bench import (bench_family, bound, bytes_in, bytes_out,
                                   feasible_points, k3_ops, primal_args)
 from cvx_tpu_torch.ops import _build
 from cvx_tpu_torch.ops import kl_barrier as kb
+from probe_common import BUILD, build, card, parse_ptxas, same_bits, say, \
+    write_log
 
 ROOT = Path(__file__).resolve().parent
-BUILD = ROOT / "_probe" / "build"
-SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 7 + [ctypes.c_void_p] * 4
-       + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_double] * 2
-       + [ctypes.c_void_p])
 SMEM = 232448          # shared memory a block may use on the H100
 
 # Each variant: (the source it edits, the substitutions, what it is held
@@ -121,14 +116,11 @@ VARIANTS = {
 DEFAULT = "fill1024,full32,M8,G1,nocomp,kahan"
 
 
-_LOG = []
-
-
-def say(*parts):
-    """print, and keep the line for ``DIR/log.txt``."""
-    line = " ".join(str(p) for p in parts)
-    print(line, flush=True)
-    _LOG.append(line)
+# ptxas's kernel instances: "kernel f k=2 NC=4 [where=W]"
+KERNELS = ((r"(kl_barrier\w*?kernel)I([fd])Li(\d)ELi(\d+)E"
+            r"(?:\w*?WhereE(\d)E)?",
+            lambda m: f"{m[1]} {m[2]} k={m[3]} NC={m[4]}"
+                      + (f" where={m[5]}" if m[5] else "")),)
 
 
 def sources(baseline, only):
@@ -149,56 +141,6 @@ def sources(baseline, only):
             src = src.replace(old, new)
         out[name] = (src, held, takes)
     return out
-
-
-def parse_ptxas(report):
-    """{"kernel f k=2 NC=4 [where=W]": {"regs": r, "spill": "stores/loads"},
-    ...}"""
-    res, cur = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(kl_barrier\w*?kernel)I"
-                      r"([fd])Li(\d)ELi(\d+)E(?:\w*?WhereE(\d)E)?", line)
-        if m:
-            where = f" where={m[5]}" if m[5] else ""
-            cur = res.setdefault(f"{m[1]} {m[2]} k={m[3]} NC={m[4]}{where}",
-                                 {})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur is not None:
-            cur["spill"] = f"{m[1]}/{m[2]}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["regs"] = int(m[1])
-    return res
-
-
-def build(srcs, out):
-    BUILD.mkdir(parents=True, exist_ok=True)
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (src, _, _) in srcs.items():
-        cu = BUILD / f"{name}.cu"
-        cu.write_text(src)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(BUILD / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        report, _ = proc.communicate()
-        (out / f"ptxas_{name}.txt").write_text(report)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{report[-4000:]}")
-        say("ptxas", name, json.dumps(parse_ptxas(report), sort_keys=True))
-        lib = ctypes.CDLL(str(BUILD / f"{name}.so"))
-        for fn in ("kl_barrier_fused_f32", "kl_barrier_fused_f64"):
-            getattr(lib, fn).argtypes = SIG
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.kl_barrier_error_string.argtypes = [ctypes.c_int]
-        lib.kl_barrier_error_string.restype = ctypes.c_char_p
-        lib.error_string = lib.kl_barrier_error_string
-        libs[name] = lib
-    return libs
 
 
 def run(lib, Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8, n_outer=None,
@@ -232,11 +174,6 @@ def family(B, n, k, seed, dev, dtype):
     H, U = bench_family(B, n, seed)
     return list(primal_args(H[:k], U[:, :k], feasible_points(U, n), dev,
                             dtype))
-
-
-def same_bits(a, b):
-    na, nb = torch.isnan(a), torch.isnan(b)
-    return bool(torch.equal(na, nb) and torch.equal(a[~na], b[~nb]))
 
 
 PROD = dict(mu=55.0, n_inner=3)
@@ -407,22 +344,24 @@ def main() -> int:
         print("probe_k3: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = card()
     t0 = time.perf_counter()
     srcs = sources(args.baseline,
                    [v for v in args.only.split(",") if v])
-    libs = build(srcs, args.out)
+    libs = build({name: s[0] for name, s in srcs.items()}, args.out,
+                 "kl_barrier.cu",
+                 lambda name, report: parse_ptxas(report, KERNELS))
     say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
+    if len(libs) < len(srcs):
+        write_log(args.out)
+        return 1
     try:
         ok = check(libs, srcs, dev)
         say(f"every check held: {ok}")
         if args.time:
             time_cases(libs, srcs, dev, smi, args.plain)
     finally:
-        (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+        write_log(args.out)
     return 0 if ok else 1
 
 

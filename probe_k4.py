@@ -67,7 +67,6 @@ import contextlib
 import io
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -77,22 +76,19 @@ import torch
 from chip_smoke import compare_k4, k4_cases, spd_batch
 from cvx_tpu_torch.ops import _build
 from cvx_tpu_torch.ops.chol import cholesky_batched_plain
+from probe_common import BUILD, build, card, parse_ptxas, sass_loops, say, \
+    write_log
 
 ROOT = Path(__file__).resolve().parent
-BUILD = ROOT / "_probe" / "build"
-_ARGS = [_build._P, _build._I64, _build._I64, _build._P, _build._I32,
-         _build._I32, _build._P]
-SIG = {"chol_batched_f32": _ARGS, "chol_batched_f64": _ARGS}
 TIME_ONLY = ("nosync", "noproduct", "nodiag", "nosolve", "parent_notrail",
              "parent_norank1")
-_LOG = []
-
-
-def say(*parts):
-    """print, and keep the line for ``DIR/log.txt``."""
-    line = " ".join(str(p) for p in parts)
-    print(line, flush=True)
-    _LOG.append(line)
+# ptxas's kernel instances: "held f G=7", "panel f left-looking", ...
+KERNELS = ((r"chol_held_kernelI([fd])Li(\d+)E",
+            lambda m: f"held {m[1]} G={m[2]}"),
+           (r"chol_panel_kernelI([fd])Lb([01])E",
+            lambda m: f"panel {m[1]} left-looking"
+                      f"{' 16-byte copies' if m[2] == '1' else ''}"),
+           (r"chol_kernelI([fd])E", lambda m: f"panel {m[1]}"))
 
 
 def substitute(src, old, new):
@@ -154,36 +150,6 @@ def variants(baseline):
     return out
 
 
-def parse_ptxas(report):
-    """{"held f G=7": {"regs": r, "spill": "stores/loads", "smem": b},
-    "panel f": {...}, ...}"""
-    names = ((r"chol_held_kernelI([fd])Li(\d+)E",
-              lambda m: f"held {m[1]} G={m[2]}"),
-             (r"chol_panel_kernelI([fd])Lb([01])E",
-              lambda m: f"panel {m[1]} left-looking"
-                        f"{' 16-byte copies' if m[2] == '1' else ''}"),
-             (r"chol_kernelI([fd])E", lambda m: f"panel {m[1]}"))
-    res, cur = {}, None
-    for line in report.splitlines():
-        if "Compiling entry" in line:
-            cur = None
-            for pat, label in names:
-                m = re.search(pat, line)
-                if m:
-                    cur = res.setdefault(label(m), {})
-                    break
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and cur is not None:
-            cur["spill"] = f"{m[1]}/{m[2]}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur is not None:
-            cur["regs"] = int(m[1])
-            m = re.search(r"(\d+) bytes smem", line)
-            cur["smem"] = int(m[1]) if m else 0
-    return res
-
-
 def panel_smem(src, f64):
     """Dynamic shared memory of the panel kernel, bytes, from the source's
     constants (``Panel<T, kBk, kTm, kTn>::smem()``)."""
@@ -206,61 +172,16 @@ def blocks_per_sm(rec, threads=256):
     return min(65536 // (regs * threads), 233472 // (smem + 1024), 8)
 
 
-def build(srcs, out):
-    BUILD.mkdir(parents=True, exist_ok=True)
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, src in srcs.items():
-        cu = BUILD / f"{name}.cu"
-        cu.write_text(src)
-        procs[name] = (time.perf_counter(), subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(BUILD / f"{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (t0, proc) in procs.items():
-        report, _ = proc.communicate()
-        (out / f"ptxas_{name}.txt").write_text(report)
-        if proc.returncode:
-            say(f"nvcc FAILED on {name}:\n{report[-3000:]}")
-            continue
-        res = parse_ptxas(report)
-        for label, rec in res.items():
-            if "left-looking" in label:
-                rec["dyn_smem"] = panel_smem(src=srcs[name],
-                                             f64=label.startswith("panel d"))
-                rec["blocks_per_sm"] = blocks_per_sm(rec)
-        say(f"ptxas {name} (done {time.perf_counter() - t0:.0f} s after the "
-            "start)", json.dumps(res, sort_keys=True))
-        libs[name] = _build.bind(BUILD / f"{name}.so", SIG,
-                                 "chol_error_string")
-    return libs
-
-
-def sass_loops(so, kernel, dump):
-    """Every loop (a backward branch and the span back to its target) of
-    the function whose mangled name holds ``kernel``: [(static
-    instructions, {opcode: count}), ...] in address order; the function's
-    SASS is written to the file ``dump``."""
-    sass = subprocess.run(
-        [str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(so)],
-        capture_output=True, text=True, check=True).stdout
-    loops = []
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        if kernel not in fn.split("\n", 1)[0]:
-            continue
-        dump.write_text(fn)
-        ins = [(int(m[1], 16), m[2], m[3]) for m in re.finditer(
-            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)[.\w]*"
-            r"(.*?);", fn)]
-        say(f"sass {kernel}: {len(ins)} instructions in all")
-        for addr, op, rest in ins:
-            t = re.search(r"0x([0-9a-f]+)", rest)
-            if op == "BRA" and t and int(t[1], 16) < addr:
-                body = [o for a, o, _ in ins if int(t[1], 16) <= a <= addr]
-                loops.append((len(body), {o: body.count(o)
-                                          for o in sorted(set(body))}))
-    return loops
+def ptxas_table(srcs, name, report):
+    """``parse_ptxas`` of variant ``name``, and for the panel kernels their
+    dynamic shared memory and blocks an SM."""
+    res = parse_ptxas(report, KERNELS, ("regs", "spill", "smem"))
+    for label, rec in res.items():
+        if "left-looking" in label:
+            rec["dyn_smem"] = panel_smem(src=srcs[name],
+                                         f64=label.startswith("panel d"))
+            rec["blocks_per_sm"] = blocks_per_sm(rec)
+    return res
 
 
 def run(lib, X):
@@ -357,13 +278,12 @@ def main() -> int:
         print("probe_k4: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    say(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = build(variants(args.baseline), args.out)
+    srcs = variants(args.baseline)
+    libs = build(srcs, args.out, "chol.cu",
+                 lambda name, report: ptxas_table(srcs, name, report))
     say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
     if args.sass:
         for name, key in (("committed", "chol_held_kernelIfLi7E"),
@@ -381,7 +301,7 @@ def main() -> int:
         f"fail: {sorted(failed - {'committed'}) or 'none'}")
     if args.time:
         time_all(libs, dev, smi)
-    (args.out / "log.txt").write_text("\n".join(_LOG) + "\n")
+    write_log(args.out)
     return 0 if ok else 1
 
 

@@ -40,8 +40,9 @@ from cvx_tpu_torch._bench import (KGAP_DGAP, KGAP_DZ, KGAP_F64_TOL,
                                   PRODUCTION, bench_family, feasible_points)
 from cvx_tpu_torch.duality import _polish_dual, _small_solve
 from cvx_tpu_torch.models import dist_kl
-from cvx_tpu_torch.models.dist_kl import _stalled, kl_dual_gap
+from cvx_tpu_torch.models.dist_kl import kl_dual_gap
 from cvx_tpu_torch.ops import kl_gap
+from cvx_tpu_torch.ops.kl_dual import _stalled
 from cvx_tpu_torch.ops.kl_gap import (_NegDualObjective, _prior_terms,
                                       kl_gap_fused, kl_gap_fused_plain,
                                       route_of)
@@ -396,7 +397,8 @@ def test_empty_batch_and_dead_lanes(dev, dtype):
 def test_primal_route_stall_flags_match_the_plain_gap(dev, n, B):
     H, U, A, b, x = _bench_converged(n, B, dtype=F32, device=dev)
     model = DistKL.create(n, H=H, u=U[0], device=dev)
-    sol = model._fused_solution(U, x, SolverParams(**PRODUCTION))
+    pars = SolverParams(**PRODUCTION)
+    sol = model._fused_solution(U, x, model._fused_schedule(pars))
     gap_p, z_p = kl_gap_fused_plain(H, U, A, b, x)
     eps = torch.finfo(F32).eps
     stalled_p = _stalled(x, gap_p, model._ineq_res(x, U), math.sqrt(eps),

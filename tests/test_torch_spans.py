@@ -190,15 +190,15 @@ def test_build_counters_count_builds_and_loads(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "kernel_loads", 0)
     monkeypatch.setattr(_build, "kernel_load_s", 0.0)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        _build.load_kl_dual("kl_dual_fused_cert_f32")
-    _build.load_kl_dual("kl_dual_fused_cert_f32")
+        _build.load("kl_dual_cert")
+    _build.load("kl_dual_cert")
     got = diagnostics.counters()
     assert got["nvcc_runs"] == {"kl_dual_cert": 1, "kl_dual_f64": 1,
                                 "kl_dual_f32": 1}
     assert got["kernel_loads"] == 1 and got["kernel_load_s"] > 0
     assert [e.name for e in prof.events()
             if e.name.startswith("cvx.")] == ["cvx.build.load"]
-    _build.load_kl_dual("kl_dual_fused_f32")
+    _build.load("kl_dual_f32")
     got = diagnostics.counters()
     assert got["kernel_loads"] == 2
     assert sum(got["nvcc_runs"].values()) == 3
