@@ -43,7 +43,7 @@ import torch
 from ._spans import span
 from .ops import _build
 from .ops.chol import cholesky_batched_cuda
-from .ops.kl_barrier import kl_barrier_fused
+from .ops.kl_barrier import kl_barrier_fused, kl_barrier_fused_plain
 from .models.dist_kl import _cert_solution, kl_dual_gap
 from .ops.kl_dual import kl_dual_fused, kl_dual_fused_cert
 from .ops.kl_gap import kl_gap_fused
@@ -77,16 +77,21 @@ def counters() -> dict:
     """The program's counters since the process started: each kernel
     wrapper's launches (its ``.launches``), ``kl_dual_gap_chain_calls``
     (CUDA calls of ``kl_dual_gap`` that ran the torch chain, not
-    ``kl_gap_fused``'s kernel), ``cert_leaves_fused`` / ``cert_leaves_torch``
-    (certified Solutions whose per-instance leaves K2 wrote on the card /
-    that the torch rule made: the f64 route, ``solve_certified``, the
-    CPU), ``nvcc_runs`` (unit -> nvcc runs), ``kernel_loads`` and
-    ``kernel_load_s`` (kernel libraries built or loaded at first use, and
-    the host seconds that took)."""
+    ``kl_gap_fused``'s kernel), ``kl_barrier_schedule_torch`` (K3 solves
+    whose schedule ``_schedule`` built as tensors: the plain version, so
+    CPU calls; on the card the kernel works it out and
+    ``kl_barrier_fused`` counts the launch), ``cert_leaves_fused`` /
+    ``cert_leaves_torch`` (certified Solutions whose per-instance leaves
+    K2 wrote on the card / that the torch rule made: the f64 route,
+    ``solve_certified``, the CPU), ``nvcc_runs`` (unit -> nvcc runs),
+    ``kernel_loads`` and ``kernel_load_s`` (kernel libraries built or
+    loaded at first use, and the host seconds that took)."""
     out = {f.__name__: f.launches for f in (
         kl_dual_fused, kl_dual_fused_cert, kl_barrier_fused, kl_gap_fused,
         cholesky_batched_cuda)}
     out.update(kl_dual_gap_chain_calls=kl_dual_gap.chain_calls,
+               kl_barrier_schedule_torch=(
+                   kl_barrier_fused_plain.schedule_torch),
                cert_leaves_fused=_cert_solution.leaves_fused,
                cert_leaves_torch=_cert_solution.leaves_torch,
                nvcc_runs=dict(_build.nvcc_runs),

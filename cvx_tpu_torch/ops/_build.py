@@ -57,7 +57,8 @@ class _Unit(NamedTuple):
 _ROWS = [_P] * 5 + [_I64] * 8             # Hs, u, A, r, log_prior; strides
 _K1 = _ROWS + [_P] * 3 + [_I32] * 5 + [_F64, _I32, _P]
 _K2 = _ROWS + [_P] * 9 + [_I32] * 5 + [_F64, _I32, _I32, _F64, _F64, _P]
-_K3 = [_P] * 5 + [_I64] * 7 + [_P] * 4 + [_I32] * 6 + [_P] + [_F64] * 2 + [_P]
+_K3 = [_P] * 5 + [_I64] * 7 + [_P] * 2 + [_I32] * 6 + [_F64] * 5 + [_P]
+_K3_SCHEDULE = [_P] + [_I32] * 3 + [_F64] * 3 + [_P]
 _GAP = ([_P, _I64, _P, _I64, _I64, _P, _I64, _P, _I64, _I64, _P, _I64]
         + [_P] * 2 + [_F64] * 2 + [_P] * 2 + [_I32] * 5 + [_F64, _P])
 _K4 = [_P, _I64, _I64, _P, _I32, _I32, _P]
@@ -71,7 +72,9 @@ UNITS = {
                          {"kl_dual_fused_f32": _K1}, "kl_dual_error_string"),
     "kl_barrier": _Unit("kl_barrier.cu", (),
                         {"kl_barrier_fused_f32": _K3,
-                         "kl_barrier_fused_f64": _K3},
+                         "kl_barrier_fused_f64": _K3,
+                         "kl_barrier_schedule_f32": _K3_SCHEDULE,
+                         "kl_barrier_schedule_f64": _K3_SCHEDULE},
                         "kl_barrier_error_string"),
     "chol": _Unit("chol.cu", (), {"chol_batched_f32": _K4,
                                   "chol_batched_f64": _K4},

@@ -66,10 +66,17 @@
 //
 // Numerics follow the reference: IEEE log/div (no fast math, no flush to
 // zero), NaN-propagating min like jnp.minimum, and the same order of
-// operations per coordinate (built with --fmad=false).  The per-stage t,
-// the candidates' beta^expo and log n come from the wrapper as device
-// arrays, computed by the same PyTorch ops as the plain version, so no
-// value is read back to the host before the launch.  Sums over the
+// operations per coordinate (built with --fmad=false).  The kernel works
+// out the continuation schedule itself from the scalars t0, mu and beta
+// (Schedule): the per-stage t, the candidates' beta^expo and log n, with
+// the functions PyTorch's CUDA exp, log and pow call, in the plain
+// version's order, so the values are _schedule's bits and a launch waits
+// on no tensor the host made for it.  Each block writes t and beta^expo
+// once into the front of its dynamic shared memory (fill_schedule), and
+// the steps read them there: a table at a fixed address holds no register
+// through the step loop (the values held in registers instead made the
+// register path 4-5 % slower on the H100, the step loop working out
+// addresses again that it had kept).  Sums over the
 // coordinates are reduced in a tree, which need not pair the partial sums
 // as the plain version's row sums do, so late Armijo decisions at f32
 // resolution may differ from it (on the bench family at n = 100 they have
@@ -77,9 +84,12 @@
 //
 // Interface: plain C, pointers and element strides; the lane axis of Hs,
 // A and x0 is contiguous, their batch strides are free (0 for a shared,
-// expanded matrix).  scratch is (B, 2, n), read only when the group path
-// keeps its coordinates in global memory (path_of's "global").  Each entry
-// launches on the given stream and returns cudaGetLastError().
+// expanded matrix).  scratch is (B, 4, n), read only when the group path
+// keeps its coordinates in global memory (path_of's "global").  t0, mu and
+// beta are doubles, rounded to T in the kernel as torch.full rounds them;
+// the table of n_outer + n_ls values must fit in a block's shared memory.
+// kl_barrier_schedule_{f32,f64} write the table and log n, for the tests.
+// Each entry launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -110,6 +120,7 @@ constexpr int kGroupBlockWarps = 4;
 constexpr int kGroupRows = 5;      // x, log x, dx, g, 1/h
 constexpr int kRedMax = 8;         // most values a pass reduces
 constexpr int kGroupSmemBytes = 232448 - 2 * kGroupMaxWarps * kRedMax * 8;
+constexpr int kSmemMax = 232448;   // shared memory a block may use
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T> struct Lim;
@@ -122,12 +133,65 @@ template <> struct Lim<double> {
 
 __device__ __forceinline__ float klog(float v) { return logf(v); }
 __device__ __forceinline__ double klog(double v) { return log(v); }
+__device__ __forceinline__ float kexp(float v) { return expf(v); }
+__device__ __forceinline__ double kexp(double v) { return exp(v); }
+__device__ __forceinline__ float kpow(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ double kpow(double a, double b) {
+  return pow(a, b);
+}
 __device__ __forceinline__ float kabs(float v) { return fabsf(v); }
 __device__ __forceinline__ double kabs(double v) { return fabs(v); }
 
 // jnp.minimum: a NaN in either argument gives NaN
 template <typename T> __device__ __forceinline__ T jmin(T a, T b) {
   return (a < b || a != a) ? a : b;
+}
+
+// The continuation schedule's scalars, as the caller gives them
+struct ScheduleArgs {
+  double t0, mu, beta;
+};
+
+// The schedule in T, the values ../kl_barrier.py's _schedule makes with
+// torch's CUDA ops (which call expf / logf / powf and their f64 forms), in
+// its order: t = T(t0) exp(T(s) log T(mu)) at stage s, candidate l's factor
+// beta^expo with expo = l below 32 and 32 + 3 (l - 32) from there, and
+// log n.
+template <typename T> struct Schedule {
+  T t0, log_mu, beta;
+  __device__ __forceinline__ explicit Schedule(ScheduleArgs a)
+      : t0(T(a.t0)), log_mu(klog(T(a.mu))), beta(T(a.beta)) {}
+  __device__ __forceinline__ T t(int s) const {
+    return t0 * kexp(T(s) * log_mu);
+  }
+  __device__ __forceinline__ T factor(int l) const {
+    return kpow(beta, T(l < 32 ? l : 32 + 3 * (l - 32)));
+  }
+};
+template <typename T> __device__ __forceinline__ T log_n(int n) {
+  return klog(T(n));
+}
+
+// Bytes of the schedule's table at the front of a block's dynamic shared
+// memory: the n_ls factors, then t for each of the n_outer stages
+template <typename T>
+__host__ __device__ inline int schedule_bytes(int n_outer, int n_ls) {
+  return ((n_outer + n_ls) * (int)sizeof(T) + 15) / 16 * 16;
+}
+
+// The block's threads write the table (every thread of the block, before
+// any leaves); returns the factors, t per stage follows them
+template <typename T>
+__device__ __forceinline__ const T* fill_schedule(ScheduleArgs sa,
+                                                  int n_outer, int n_ls) {
+  extern __shared__ __align__(16) unsigned char kl_smem[];
+  T* tab = reinterpret_cast<T*>(kl_smem);
+  const Schedule<T> sch(sa);
+  for (int l = threadIdx.x; l < n_ls; l += blockDim.x) tab[l] = sch.factor(l);
+  for (int s = threadIdx.x; s < n_outer; s += blockDim.x)
+    tab[n_ls + s] = sch.t(s);
+  __syncthreads();
+  return tab;
 }
 
 // butterfly all-reduce: every lane ends with the same bits
@@ -149,12 +213,13 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
                   const T* __restrict__ A, const T* __restrict__ bv,
                   const T* __restrict__ x0, long long sHb, long long sHk,
                   long long sub, long long suk, long long sAb, long long sbb,
-                  long long sxb, const T* __restrict__ ts,
-                  const T* __restrict__ ls_ts, T* __restrict__ xout, int B,
-                  int n, int n_outer, int n_inner, int n_ls,
-                  const T* __restrict__ lognv_p, T delta, T alpha) {
+                  long long sxb, ScheduleArgs sa, T* __restrict__ xout,
+                  int B, int n, int n_outer, int n_inner, int n_ls, T delta,
+                  T alpha) {
   const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
+  const T* ls_ts = fill_schedule<T>(sa, n_outer, n_ls);
+  const T* ts = ls_ts + n_ls;
   if (b >= B) return;
   // the same trip count on every lane; coordinates i >= n are skipped
   constexpr int nc = NC;
@@ -165,7 +230,7 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
   for (int j = 0; j < K; ++j) ub[j] = u[b * sub + j * suk];
   const T bb = bv[b * sbb];
   const T eps = Lim<T>::eps();
-  const T lognv = *lognv_p;
+  const T lognv = log_n<T>(n);
 
   T x[NC], lx[NC], g[NC], ih[NC], hig[NC], hia[NC], dx[NC];
 #pragma unroll
@@ -174,7 +239,7 @@ kl_barrier_kernel(const T* __restrict__ H, const T* __restrict__ u,
     if (i < n) x[c] = x0[b * sxb + i];
   }
 
-  // The candidates' factors beta^expo, read once: when they do not
+  // The candidates' factors beta^expo, read once a warp: when they do not
   // increase, neither do the candidates s_max beta^expo for s_max > 0, so
   // the first accepted candidate is the longest and the search stops
   // there; when none is negative, a non-positive (or NaN) s_max has no
@@ -532,12 +597,9 @@ kl_barrier_group_kernel(const T* __restrict__ H, const T* __restrict__ u,
                         const T* __restrict__ x0, long long sHb,
                         long long sHk, long long sub, long long suk,
                         long long sAb, long long sbb, long long sxb,
-                        const T* __restrict__ ts,
-                        const T* __restrict__ ls_ts, T* __restrict__ xout,
+                        ScheduleArgs sa, T* __restrict__ xout,
                         T* __restrict__ scratch, int B, int n, int n_outer,
-                        int n_inner, int n_ls,
-                        const T* __restrict__ lognv_p, T delta, T alpha,
-                        int G) {
+                        int n_inner, int n_ls, T delta, T alpha, int G) {
   constexpr bool BLK = sizeof(T) == sizeof(float) && NC == 0;
   __shared__ T red[2 * kGroupMaxWarps * kRedMax];
   extern __shared__ __align__(16) unsigned char kl_smem[];
@@ -545,7 +607,10 @@ kl_barrier_group_kernel(const T* __restrict__ H, const T* __restrict__ u,
   const int per = G == 1 ? kGroupBlockWarps : 1;
   const int gi = wblk / G;
   const int b = blockIdx.x * per + gi;
-  // only one-warp groups run past B, and they use no block barrier
+  const T* ls_ts = fill_schedule<T>(sa, n_outer, n_ls);
+  const T* ts = ls_ts + n_ls;
+  // only one-warp groups run past B, and they use no block barrier after
+  // this point
   if (b >= B) return;
   Grp<T> g{lane, wblk % G, G, red, 0};
   const int S = 32 * G;
@@ -559,15 +624,15 @@ kl_barrier_group_kernel(const T* __restrict__ H, const T* __restrict__ u,
   for (int j = 0; j < K; ++j) ub[j] = u[b * sub + j * suk];
   const T bb = bv[b * sbb];
   const T eps = Lim<T>::eps();
-  const T lognv = *lognv_p;
+  const T lognv = log_n<T>(n);
 
   // x, log x, dx, and pass 2's g and 1/h for passes 3 and 4
   Coords<T, NC> x, lx, dx, gk, ihk;
   if constexpr (NC == 0) {
     T* row;
     if constexpr (W == kShared) {
-      row = reinterpret_cast<T*>(kl_smem) + (long long)gi * kGroupRows * n +
-            t0;
+      row = reinterpret_cast<T*>(kl_smem + schedule_bytes<T>(n_outer, n_ls)) +
+            (long long)gi * kGroupRows * n + t0;
       x.bind(row, S);
       row += n;
     } else {
@@ -860,26 +925,38 @@ inline int group_warps(int n, int B) {
 }
 
 #define KL_K3_ARGS                                                         \
-  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, ts, ls_ts, x, B, n,  \
-      n_outer, n_inner, n_ls, lognv, delta, alpha
+  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, sa, x, B, n, n_outer, \
+      n_inner, n_ls, delta, alpha
 #define KL_K3_GROUP_ARGS                                                   \
-  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, ts, ls_ts, x,        \
-      scratch, B, n, n_outer, n_inner, n_ls, lognv, delta, alpha, G
+  H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb, sa, x, scratch, B, n, \
+      n_outer, n_inner, n_ls, delta, alpha, G
+
+// Launches kernel with `smem` bytes of dynamic shared memory, raising the
+// kernel's limit first where it is above the default
+template <typename F, typename... A>
+void launch_smem(F kernel, int blocks, int threads, long long smem,
+                 cudaStream_t st, A... args) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  kernel<<<blocks, threads, (size_t)smem, st>>>(args...);
+}
 
 template <typename T, int K>
 void launch_k(const T* H, const T* u, const T* A, const T* bv, const T* x0,
               long long sHb, long long sHk, long long sub, long long suk,
-              long long sAb, long long sbb, long long sxb, const T* ts,
-              const T* ls_ts, T* x, T* scratch, int B, int n, int n_outer,
-              int n_inner, int n_ls, const T* lognv, T delta, T alpha,
-              cudaStream_t st) {
+              long long sAb, long long sbb, long long sxb, ScheduleArgs sa,
+              T* x, T* scratch, int B, int n, int n_outer, int n_inner,
+              int n_ls, T delta, T alpha, cudaStream_t st) {
+  const int tab = schedule_bytes<T>(n_outer, n_ls);
   if (n <= kRegMaxN) {
     const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
     if (n <= 4 * 32)
-      kl_barrier_kernel<T, K, 4><<<blocks, kThreads, 0, st>>>(KL_K3_ARGS);
+      launch_smem(kl_barrier_kernel<T, K, 4>, blocks, kThreads, tab, st,
+                  KL_K3_ARGS);
     else
-      kl_barrier_kernel<T, K, kRegMaxN / 32><<<blocks, kThreads, 0, st>>>(
-          KL_K3_ARGS);
+      launch_smem(kl_barrier_kernel<T, K, kRegMaxN / 32>, blocks, kThreads,
+                  tab, st, KL_K3_ARGS);
     return;
   }
   const int G = group_warps(n, B);
@@ -888,51 +965,83 @@ void launch_k(const T* H, const T* u, const T* A, const T* bv, const T* x0,
   const int threads = 32 * G * per;
   const int c = (n + 32 * G - 1) / (32 * G);
   if (c <= kGroupNC) {
-    kl_barrier_group_kernel<T, K, kGroupNC, kRegisters>
-        <<<blocks, threads, 0, st>>>(KL_K3_GROUP_ARGS);
+    launch_smem(kl_barrier_group_kernel<T, K, kGroupNC, kRegisters>, blocks,
+                threads, tab, st, KL_K3_GROUP_ARGS);
   } else {
+    // the rows follow the schedule's table; where both do not fit beside
+    // the reduction buffers, the rows go to global memory
     const long long smem =
         (long long)per * kGroupRows * n * (long long)sizeof(T);
-    if (smem <= kGroupSmemBytes) {
-      cudaFuncSetAttribute(kl_barrier_group_kernel<T, K, 0, kShared>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-      kl_barrier_group_kernel<T, K, 0, kShared>
-          <<<blocks, threads, (size_t)smem, st>>>(KL_K3_GROUP_ARGS);
+    if (smem <= kGroupSmemBytes &&
+        smem + tab + 2 * kGroupMaxWarps * kRedMax * (long long)sizeof(T) <=
+            kSmemMax) {
+      launch_smem(kl_barrier_group_kernel<T, K, 0, kShared>, blocks, threads,
+                  smem + tab, st, KL_K3_GROUP_ARGS);
     } else {
-      kl_barrier_group_kernel<T, K, 0, kGlobal>
-          <<<blocks, threads, 0, st>>>(KL_K3_GROUP_ARGS);
+      launch_smem(kl_barrier_group_kernel<T, K, 0, kGlobal>, blocks, threads,
+                  tab, st, KL_K3_GROUP_ARGS);
     }
   }
 }
 #undef KL_K3_ARGS
 #undef KL_K3_GROUP_ARGS
 
+// The schedule's table fits in a block's shared memory beside a group's
+// reduction buffers
+template <typename T> bool schedule_fits(int n_outer, int n_ls) {
+  return (long long)(n_outer + n_ls) * (long long)sizeof(T) + 16 +
+             2 * kGroupMaxWarps * kRedMax * (long long)sizeof(T) <=
+         kSmemMax;
+}
+
 template <typename T>
 int launch_k3(const void* H, const void* u, const void* A, const void* bv,
               const void* x0, long long sHb, long long sHk, long long sub,
               long long suk, long long sAb, long long sbb, long long sxb,
-              const void* ts, const void* ls_ts, void* x, void* scratch,
-              int B, int n, int k, int n_outer, int n_inner, int n_ls,
-              const void* lognv, double delta, double alpha,
-              void* stream) {
-  if (B < 1 || n < 1 || n_outer < 0 || n_inner < 0 || n_ls < 1)
+              void* x, void* scratch, int B, int n, int k, int n_outer,
+              int n_inner, int n_ls, double t0, double mu, double beta,
+              double delta, double alpha, void* stream) {
+  if (B < 1 || n < 1 || n_outer < 0 || n_inner < 0 || n_ls < 1 ||
+      !schedule_fits<T>(n_outer, n_ls))
     return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const ScheduleArgs sa{t0, mu, beta};
   if (k == 1)
     launch_k<T, 1>((const T*)H, (const T*)u, (const T*)A, (const T*)bv,
-                   (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
-                   (const T*)ts, (const T*)ls_ts, (T*)x, (T*)scratch, B, n,
-                   n_outer, n_inner, n_ls, (const T*)lognv, T(delta),
-                   T(alpha), st);
+                   (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb, sa,
+                   (T*)x, (T*)scratch, B, n, n_outer, n_inner, n_ls,
+                   T(delta), T(alpha), st);
   else if (k == 2)
     launch_k<T, 2>((const T*)H, (const T*)u, (const T*)A, (const T*)bv,
-                   (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
-                   (const T*)ts, (const T*)ls_ts, (T*)x, (T*)scratch, B, n,
-                   n_outer, n_inner, n_ls, (const T*)lognv, T(delta),
-                   T(alpha), st);
+                   (const T*)x0, sHb, sHk, sub, suk, sAb, sbb, sxb, sa,
+                   (T*)x, (T*)scratch, B, n, n_outer, n_inner, n_ls,
+                   T(delta), T(alpha), st);
   else
     return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// The table K3 works out, written to out: the n_ls candidates' factors,
+// t for each of the n_outer stages, then log n
+template <typename T>
+__global__ void kl_barrier_schedule_kernel(T* __restrict__ out, int n,
+                                           int n_outer, int n_ls,
+                                           ScheduleArgs sa) {
+  const T* tab = fill_schedule<T>(sa, n_outer, n_ls);
+  for (int i = threadIdx.x; i < n_outer + n_ls; i += blockDim.x)
+    out[i] = tab[i];
+  if (threadIdx.x == 0) out[n_outer + n_ls] = log_n<T>(n);
+}
+
+template <typename T>
+int launch_schedule(void* out, int n, int n_outer, int n_ls, double t0,
+                    double mu, double beta, void* stream) {
+  if (n < 1 || n_outer < 0 || n_ls < 1 ||
+      !schedule_fits<T>(n_outer, n_ls))
+    return cudaErrorInvalidValue;
+  launch_smem(kl_barrier_schedule_kernel<T>, 1, 32,
+              schedule_bytes<T>(n_outer, n_ls), (cudaStream_t)stream, (T*)out,
+              n, n_outer, n_ls, ScheduleArgs{t0, mu, beta});
   return cudaGetLastError();
 }
 
@@ -944,26 +1053,37 @@ int kl_barrier_fused_f32(const void* H, const void* u, const void* A,
                          const void* bv, const void* x0, long long sHb,
                          long long sHk, long long sub, long long suk,
                          long long sAb, long long sbb, long long sxb,
-                         const void* ts, const void* ls_ts, void* x,
-                         void* scratch, int B, int n, int k, int n_outer,
-                         int n_inner, int n_ls, const void* lognv,
-                         double delta, double alpha, void* stream) {
+                         void* x, void* scratch, int B, int n, int k,
+                         int n_outer, int n_inner, int n_ls, double t0,
+                         double mu, double beta, double delta, double alpha,
+                         void* stream) {
   return launch_k3<float>(H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb, sxb,
-                          ts, ls_ts, x, scratch, B, n, k, n_outer, n_inner,
-                          n_ls, lognv, delta, alpha, stream);
+                          x, scratch, B, n, k, n_outer, n_inner, n_ls, t0,
+                          mu, beta, delta, alpha, stream);
 }
 
 int kl_barrier_fused_f64(const void* H, const void* u, const void* A,
                          const void* bv, const void* x0, long long sHb,
                          long long sHk, long long sub, long long suk,
                          long long sAb, long long sbb, long long sxb,
-                         const void* ts, const void* ls_ts, void* x,
-                         void* scratch, int B, int n, int k, int n_outer,
-                         int n_inner, int n_ls, const void* lognv,
-                         double delta, double alpha, void* stream) {
+                         void* x, void* scratch, int B, int n, int k,
+                         int n_outer, int n_inner, int n_ls, double t0,
+                         double mu, double beta, double delta, double alpha,
+                         void* stream) {
   return launch_k3<double>(H, u, A, bv, x0, sHb, sHk, sub, suk, sAb, sbb,
-                           sxb, ts, ls_ts, x, scratch, B, n, k, n_outer,
-                           n_inner, n_ls, lognv, delta, alpha, stream);
+                           sxb, x, scratch, B, n, k, n_outer, n_inner, n_ls,
+                           t0, mu, beta, delta, alpha, stream);
+}
+
+int kl_barrier_schedule_f32(void* out, int n, int n_outer, int n_ls,
+                            double t0, double mu, double beta, void* stream) {
+  return launch_schedule<float>(out, n, n_outer, n_ls, t0, mu, beta, stream);
+}
+
+int kl_barrier_schedule_f64(void* out, int n, int n_outer, int n_ls,
+                            double t0, double mu, double beta, void* stream) {
+  return launch_schedule<double>(out, n, n_outer, n_ls, t0, mu, beta,
+                                 stream);
 }
 
 const char* kl_barrier_error_string(int err) {

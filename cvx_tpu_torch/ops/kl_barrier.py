@@ -25,9 +25,13 @@ tensors: a CUDA tensor runs the kernel or raises.
 The TPU kernel padded n to a lane multiple and B to its tile with inert
 filler; both were Mosaic layout needs.  Here nothing is padded: the padded
 coordinates only ever added zeros to the row sums.  The schedule's
-per-stage t, the candidates' beta^i and log n are computed once, in
-PyTorch, and handed to the kernel as device tensors (nothing is read back
-before the launch), so both versions use the same values.
+per-stage t, the candidates' beta^i and log n: the plain version builds
+them as tensors (``_schedule``, counted in
+``kl_barrier_fused_plain.schedule_torch``); the kernel works them out
+itself from t0, mu and beta with the functions PyTorch's CUDA ops call,
+in the same order, into a table in each block's shared memory, so both
+versions use the same values and a launch issues nothing else on the
+card.
 """
 
 from __future__ import annotations
@@ -51,9 +55,16 @@ _GROUP_BLOCK_WARPS = 4
 _GROUP_ROWS = 5
 _RED_MAX = 8
 _GROUP_SMEM_BYTES = 232448 - 2 * _GROUP_MAX_WARPS * _RED_MAX * 8
+_SMEM_MAX = 232448
 
 
-def path_of(n, B, dtype):
+def _schedule_bytes(table, size):
+    """Bytes of the kernel's schedule table of ``table`` entries (n_outer +
+    n_ls) at the front of a block's shared memory (``schedule_bytes``)."""
+    return -(-table * size // 16) * 16
+
+
+def path_of(n, B, dtype, table=0):
     """The path ``csrc/kl_barrier.cu``'s launcher takes for B instances of
     n coordinates in ``dtype``: ``"register"`` (n <= 256: one warp an
     instance, its coordinates' state in registers), or ``("group", G,
@@ -62,7 +73,8 @@ def path_of(n, B, dtype):
     not fill the card or it would own more than ``_GROUP_FULL_NC``, up to
     ``_GROUP_MAX_WARPS``), a thread's x, log x, dx, g and 1/h in
     ``"registers"`` (it owns at most ``_GROUP_NC`` coordinates),
-    ``"shared"`` memory (a block's fit) or ``"global"`` memory (the
+    ``"shared"`` memory (a block's fit, beside the schedule's table of
+    ``table`` = n_outer + n_ls entries) or ``"global"`` memory (the
     wrapper's (B, 4, n) scratch)."""
     if n <= _REG_MAX_N:
         return "register"
@@ -72,9 +84,12 @@ def path_of(n, B, dtype):
         G *= 2
     per = _GROUP_BLOCK_WARPS if G == 1 else 1
     size = torch.finfo(dtype).bits // 8
+    rows = per * _GROUP_ROWS * n * size
     if -(-n // (32 * G)) <= _GROUP_NC:
         where = "registers"
-    elif per * _GROUP_ROWS * n * size <= _GROUP_SMEM_BYTES:
+    elif rows <= _GROUP_SMEM_BYTES and (
+            rows + _schedule_bytes(table, size)
+            + 2 * _GROUP_MAX_WARPS * _RED_MAX * size <= _SMEM_MAX):
         where = "shared"
     else:
         where = "global"
@@ -130,8 +145,8 @@ def _schedule(n, dtype, device, *, t0, mu, n_outer, beta, n_ls):
     """(t per stage (n_outer,), the candidates' beta^expo (n_ls,), log n),
     in the working dtype as the reference computes them
     (pallas_kl.py:104-117).  Filled on the device: torch.tensor(v,
-    device=cuda) copies from the host and waits for the stream, which would
-    hold each launch until the previous kernel ends."""
+    device=cuda) copies from the host and waits for the stream.  The kernel
+    makes the same values itself (``csrc/kl_barrier.cu``'s ``Schedule``)."""
     def c(v):
         return torch.full((), v, dtype=dtype, device=device)
 
@@ -156,13 +171,17 @@ def kl_barrier_fused_plain(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     ``s_max`` is not positive and no candidate factor is negative), else
     the index of the first accepted candidate plus 1, or ``n_ls`` when none
     is accepted or the candidates are not non-increasing (then every one is
-    evaluated)."""
+    evaluated).
+
+    ``kl_barrier_fused_plain.schedule_torch`` counts the calls, each of
+    which builds its schedule as tensors (``_schedule``)."""
     n_outer = _check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
                           n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
     B, k, n = Hs.shape
     dtype = Hs.dtype
     ts, ls_ts, lognv = _schedule(n, dtype, Hs.device, t0=t0, mu=mu,
                                  n_outer=n_outer, beta=beta, n_ls=n_ls)
+    kl_barrier_fused_plain.schedule_torch += 1
     if count_candidates:
         count = torch.zeros(B, dtype=torch.int64, device=Hs.device)
         descending = bool((ls_ts[1:] <= ls_ts[:-1]).all())
@@ -263,6 +282,9 @@ def kl_barrier_fused_plain(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     return (x, count) if count_candidates else x
 
 
+kl_barrier_fused_plain.schedule_torch = 0
+
+
 def _candidates_needed(accepted, q_ok, s_pos, descending, has_neg):
     """(B,) candidates K3 evaluates in one step: ``accepted`` (B, n_ls),
     ``q_ok`` and ``s_pos`` (B, 1).  With s_max > 0 the candidates keep the
@@ -306,7 +328,9 @@ def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     run the CUDA kernel on the current stream: for n <= 256 one warp per
     instance, for larger n one instance per G warps (``path_of`` gives G
     and where a thread's per-coordinate state lives; only ``"global"``
-    allocates a (B, 4, n) scratch tensor).  Anything it does not take raises.
+    allocates a (B, 4, n) scratch tensor).  The kernel works out the
+    schedule from t0, mu and beta, so a call issues one device op, the
+    kernel.  Anything it does not take raises.
     ``kl_barrier_fused.launches`` counts kernel launches.
     """
     n_outer = _check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
@@ -322,12 +346,16 @@ def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     strides = _kernel_strides(Hs, u, A, b, x0)
     B, k, n = Hs.shape
     dtype, dev = Hs.dtype, Hs.device
-    ts, ls_ts, lognv = _schedule(n, dtype, dev, t0=t0, mu=mu,
-                                 n_outer=n_outer, beta=beta, n_ls=n_ls)
+    size = torch.finfo(dtype).bits // 8
+    if (n_outer + n_ls) * size + 16 + 2 * _GROUP_MAX_WARPS * _RED_MAX * size \
+            > _SMEM_MAX:
+        raise ValueError(f"kl_barrier_fused: the kernel's schedule table of "
+                         f"n_outer + n_ls = {n_outer + n_ls} values does not "
+                         "fit in a block's shared memory")
     x = torch.empty((B, n), dtype=dtype, device=dev)
     if B == 0:
         return x
-    path = path_of(n, B, dtype)
+    path = path_of(n, B, dtype, n_outer + n_ls)
     scratch = (torch.empty((B, _GROUP_ROWS - 1, n), dtype=dtype,
                            device=dev)
                if path != "register" and path[2] == "global" else x)
@@ -336,8 +364,8 @@ def kl_barrier_fused(Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
     ptr = _build.ptr
     _build.launch(_build.load("kl_barrier"), fn, "kl_barrier_fused", dev,
                   ptr(Hs), ptr(u), ptr(A), ptr(b), ptr(x0), *strides,
-                  ptr(ts), ptr(ls_ts), ptr(x), ptr(scratch), B, n, k,
-                  n_outer, n_inner, n_ls, ptr(lognv), default_delta(dtype),
+                  ptr(x), ptr(scratch), B, n, k, n_outer, n_inner, n_ls,
+                  float(t0), float(mu), float(beta), default_delta(dtype),
                   float(alpha))
     kl_barrier_fused.launches += 1
     return x

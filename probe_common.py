@@ -83,9 +83,10 @@ def build(srcs, out, source, table):
     """Compile each of ``srcs`` ({variant: CUDA source text}), one nvcc
     each, all started together; write nvcc's report to
     ``out/ptxas_<variant>.txt``, say ``table(variant, report)`` and bind
-    the library with ``source``'s entry points from ``_build.UNITS``.  A
-    variant nvcc refuses is said and left out.  Returns {variant:
-    library}."""
+    the library with those of ``source``'s entry points from
+    ``_build.UNITS`` that its text defines (an older source may lack
+    some).  A variant nvcc refuses is said and left out.  Returns
+    {variant: library}."""
     BUILD.mkdir(parents=True, exist_ok=True)
     out.mkdir(parents=True, exist_ok=True)
     rows = [r for r in _build.UNITS.values() if r.source == source]
@@ -107,8 +108,9 @@ def build(srcs, out, source, table):
             continue
         say(f"ptxas {name} (done {time.perf_counter() - t0:.0f} s after the "
             "start)", json.dumps(table(name, report), sort_keys=True))
-        libs[name] = _build.bind(BUILD / f"{name}.so", entries,
-                                 rows[0].error_fn)
+        libs[name] = _build.bind(BUILD / f"{name}.so",
+                                 {fn: a for fn, a in entries.items()
+                                  if fn in srcs[name]}, rows[0].error_fn)
     return libs
 
 

@@ -1,18 +1,22 @@
 """Variants of K3 (``cvx_tpu_torch/ops/csrc/kl_barrier.cu``) on one NVIDIA
 GPU: registers, bits and times.
 
-Builds the committed source, a baseline (an earlier ``kl_barrier.cu`` with
-the same C interface, e.g. ``git show
-<commit>:cvx_tpu_torch/ops/csrc/kl_barrier.cu``) and text-substituted
-variants, each with ``_build.NVCC_FLAGS`` plus ``-Xptxas -v``, one nvcc
-each, all started together, into ``_probe/build`` (gitignored); prints the
-registers and spills of every template instance; holds the committed
-kernel to the plain version (``chip_smoke.py``'s tolerances, NaN in the
-same places) on bench.py's family and on edge cases at both paths (n <=
-256 the register path, n > 256 the other), the baseline to the committed
-kernel bit for bit on the register path, and every other variant to what
-its kind says (``VARIANTS``); with ``--time`` times them in turns (forward,
-then backward) with CUDA events at ``TIME_CASES``, each beside its bound
+Builds the committed source, a baseline (an earlier ``kl_barrier.cu``,
+e.g. ``git show <commit>:cvx_tpu_torch/ops/csrc/kl_barrier.cu``) and
+text-substituted variants, each with ``_build.NVCC_FLAGS`` plus ``-Xptxas
+-v``, one nvcc each, all started together, into ``_probe/build``
+(gitignored); prints the registers and spills of every template instance;
+holds the committed kernel to the plain version (``chip_smoke.py``'s
+tolerances, NaN in the same places) on bench.py's family and on edge cases
+at both paths (n <= 256 the register path, n > 256 the other), the
+baseline to the committed kernel bit for bit on the register path, or, as
+integers, on every path for a baseline that reads its schedule from
+tensors (``TENSOR_SCHEDULE``: the interface before the kernel worked the
+schedule out itself, launched here with ``_schedule``'s tensors made
+before the launch), and every other variant to what its kind says
+(``VARIANTS``); with ``--time`` times them in turns (forward, then
+backward) with CUDA events at ``TIME_CASES``, the kernel alone, each
+beside its bound
 (``_bench.bound`` with ``k3_ops``) and, with ``--plain``, the plain
 version's time.
 
@@ -20,14 +24,20 @@ version's time.
                         [--only V1,V2] [--out DIR]
 
 ``--only`` picks the variants built beside the committed source and the
-baseline (default ``DEFAULT``).  Needs a CUDA device and nvcc; writes
-nvcc's full reports to ``DIR/ptxas_<variant>.txt`` and the whole log to
-``DIR/log.txt`` (default ``_probe/build``).
+baseline (default ``DEFAULT``; ``--only ""`` builds none).  Needs a CUDA
+device and nvcc; writes nvcc's full reports to ``DIR/ptxas_<variant>.txt``
+and the whole log to ``DIR/log.txt`` (default ``_probe/build``).  The
+committed kernel against its parent's tensor-schedule build, times, bits
+and the ptxas table:
+
+    git show <parent>:cvx_tpu_torch/ops/csrc/kl_barrier.cu > _probe/old.cu
+    python3 probe_k3.py --baseline _probe/old.cu --time --only ""
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import sys
@@ -115,6 +125,19 @@ VARIANTS = {
 }
 DEFAULT = "fill1024,full32,M8,G1,nocomp,kahan"
 
+# The C interface of a source that reads its schedule from tensors: t per
+# stage, the candidates' factors and log n as device pointers in place of
+# t0, mu and beta (_build.UNITS["kl_barrier"] gives the committed one)
+TENSOR_SCHEDULE = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 7
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] + [ctypes.c_double] * 2
+                   + [ctypes.c_void_p])
+
+
+def reads_tensors(src):
+    """Whether a ``kl_barrier.cu`` takes its schedule as tensors."""
+    return "const void* ts, const void* ls_ts" in " ".join(src.split())
+
 
 # ptxas's kernel instances: "kernel f k=2 NC=4 [where=W]"
 KERNELS = ((r"(kl_barrier\w*?kernel)I([fd])Li(\d)ELi(\d+)E"
@@ -130,7 +153,8 @@ def sources(baseline, only):
     parent = committed
     if baseline:
         parent = Path(baseline).read_text()
-        out["baseline"] = (parent, "register", None)
+        out["baseline"] = (parent, "same" if reads_tensors(parent)
+                           else "register", None)
     for name in only:
         base, subs, held, takes = VARIANTS[name]
         src = parent if base == "parent" else committed
@@ -143,29 +167,53 @@ def sources(baseline, only):
     return out
 
 
-def run(lib, Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8, n_outer=None,
-        n_inner=8, alpha=0.04, beta=0.8, n_ls=12):
-    """``kl_barrier_fused`` on the library ``lib``, with a scratch tensor
-    large enough for every source this probe builds (the one-warp
-    scratch path took (B, 6, n) above n = 256)."""
+def launcher(lib, Hs, u, A, b, x0, *, t0=1.0, mu=30.0, tol=1e-8,
+             n_outer=None, n_inner=8, alpha=0.04, beta=0.8, n_ls=12):
+    """A function that launches ``kl_barrier_fused``'s kernel on the
+    library ``lib`` and returns x, with a scratch tensor large enough for
+    every source this probe builds (the one-warp scratch path took (B, 6,
+    n) above n = 256).  A library whose source reads its schedule from
+    tensors (``lib.reads_tensors``, bound with ``TENSOR_SCHEDULE``) gets
+    ``_schedule``'s tensors, made here, before any launch."""
     n_outer = kb._check_args(Hs, u, A, b, x0, t0=t0, mu=mu, tol=tol,
                              n_outer=n_outer, n_inner=n_inner, n_ls=n_ls)
     strides = kb._kernel_strides(Hs, u, A, b, x0)
     B, k, n = Hs.shape
     dtype, dev = Hs.dtype, Hs.device
-    ts, ls_ts, lognv = kb._schedule(n, dtype, dev, t0=t0, mu=mu,
-                                    n_outer=n_outer, beta=beta, n_ls=n_ls)
     x = torch.empty((B, n), dtype=dtype, device=dev)
     scratch = (torch.empty((B, 6, n), dtype=dtype, device=dev)
                if n > kb._REG_MAX_N else x)
     fn = ("kl_barrier_fused_f32" if dtype == torch.float32
           else "kl_barrier_fused_f64")
     p = _build.ptr
-    _build.launch(lib, fn, "probe_k3", dev, p(Hs), p(u), p(A), p(b), p(x0),
-                  *strides, p(ts), p(ls_ts), p(x), p(scratch), B, n, k,
-                  n_outer, n_inner, n_ls, p(lognv), kb.default_delta(dtype),
-                  float(alpha))
-    return x
+    head = (p(Hs), p(u), p(A), p(b), p(x0), *strides)
+    sizes = (B, n, k, n_outer, n_inner, n_ls)
+    delta = kb.default_delta(dtype)
+    if lib.reads_tensors:
+        ts, ls_ts, lognv = kb._schedule(n, dtype, dev, t0=t0, mu=mu,
+                                        n_outer=n_outer, beta=beta,
+                                        n_ls=n_ls)
+        args = (*head, p(ts), p(ls_ts), p(x), p(scratch), *sizes, p(lognv),
+                delta, float(alpha))
+    else:
+        args = (*head, p(x), p(scratch), *sizes, float(t0), float(mu),
+                float(beta), delta, float(alpha))
+
+    def launch():
+        _build.launch(lib, fn, "probe_k3", dev, *args)
+        return x
+
+    return launch
+
+
+def run(lib, *a, **kw):
+    """One launch of ``launcher(lib, *a, **kw)``; returns x."""
+    return launcher(lib, *a, **kw)()
+
+
+def int_bits(t):
+    """A float tensor's bit patterns as integers of its width."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
 
 
 def family(B, n, k, seed, dev, dtype):
@@ -268,6 +316,8 @@ def check(libs, srcs, dev):
                     line.append(f"{name} - plain {e:.3e}")
                     continue
                 same = same_bits(got, ref)
+            elif held == "same" and name == "baseline":
+                same = torch.equal(int_bits(got), int_bits(ref))
             elif held == "same":
                 same = same_bits(got, parent)
             else:                      # "plain"
@@ -288,7 +338,7 @@ def time_cases(libs, srcs, dev, smi, plain):
     for cname, B, n, k, dtype in TIME_CASES:
         a = family(B, n, k, 0, dev, dtype)
         size = a[0].element_size()
-        fns = {name: (lambda lib=lib: run(lib, *a, **PROD))
+        fns = {name: launcher(lib, *a, **PROD)
                for name, lib in libs.items()
                if not (srcs[name][2] and not srcs[name][2](n, size))}
         if plain:
@@ -351,6 +401,11 @@ def main() -> int:
     libs = build({name: s[0] for name, s in srcs.items()}, args.out,
                  "kl_barrier.cu",
                  lambda name, report: parse_ptxas(report, KERNELS))
+    for name, lib in libs.items():
+        lib.reads_tensors = reads_tensors(srcs[name][0])
+        if lib.reads_tensors:
+            for fn in ("kl_barrier_fused_f32", "kl_barrier_fused_f64"):
+                getattr(lib, fn).argtypes = TENSOR_SCHEDULE
     say(f"build {time.perf_counter() - t0:.1f} s ({len(libs)} variants)")
     if len(libs) < len(srcs):
         write_log(args.out)

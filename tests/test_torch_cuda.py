@@ -22,7 +22,11 @@ triangle from the failed pivot's column on).
 
 K2's epilogue on the held and group paths writes the stall flag by
 ``_stalled``'s rule and the constant leaves, and a certified call through
-``DistKL.solve_certified_batch`` is K2 alone on the card.
+``DistKL.solve_certified_batch`` is K2 alone on the card.  K3 works out
+its continuation schedule itself into a table in shared memory: the
+values equal ``_schedule``'s tensors on the card bit for bit, f64 rows
+that fill a block move to global memory beside the table, and a K3 call
+is the kernel alone.
 
 The generic core, the fleet screen, the QP family, ``minimize`` and
 resume run on the card against the same calls on the CPU (tolerances at
@@ -308,6 +312,63 @@ def test_k3_matches_plain(dev, B, n, k, dtype, ls):
         tol = 0.0       # the bench family: the same bits
     assert bool(torch.isfinite(x).all())
     assert float((x - xp).abs().max()) <= tol
+
+
+def _kernel_schedule(n, dtype, dev, *, t0, mu, n_outer, beta, n_ls):
+    """(t per stage, the candidates' factors, log n) as K3 works them out
+    (``kl_barrier_schedule_{f32,f64}``)."""
+    from cvx_tpu_torch.ops import _build
+
+    out = torch.full((n_ls + n_outer + 1,), float("nan"), dtype=dtype,
+                     device=dev)
+    fn = ("kl_barrier_schedule_f32" if dtype == torch.float32
+          else "kl_barrier_schedule_f64")
+    _build.launch(_build.load("kl_barrier"), fn, "kl_barrier_schedule", dev,
+                  _build.ptr(out), n, n_outer, n_ls, float(t0), float(mu),
+                  float(beta))
+    return out[n_ls:n_ls + n_outer], out[:n_ls], out[-1]
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mu", [30.0, 55.0])
+def test_k3_schedule_is_the_torch_schedule_bit_for_bit(dev, mu, dtype):
+    # K3's in-kernel schedule against _schedule's tensors on the card, as
+    # bit patterns: the stages' t, the candidates' factors (increasing and
+    # alternating ones, exponents past 32) and log n
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    for t0 in (1.0, 0.37):
+        for beta in (0.8, 1.25, -0.8):
+            for n_ls in (1, 12, 40):
+                for n_outer in range(2, 9):
+                    for n in (3, 100, 10000):
+                        kw = dict(t0=t0, mu=mu, n_outer=n_outer, beta=beta,
+                                  n_ls=n_ls)
+                        got = _kernel_schedule(n, dtype, dev, **kw)
+                        want = _schedule(n, dtype, dev, **kw)
+                        for g, w, what in zip(got, want,
+                                              ("t", "factors", "log n")):
+                            assert torch.equal(g.view(bits), w.view(bits)), \
+                                (what, n, kw, g.tolist(), w.tolist())
+
+
+@pytest.mark.timeout(600)
+def test_k3_schedule_table_moves_the_rows_to_global_memory(dev):
+    # f64 rows of n = 5,760 fill a block's shared memory alone: beside the
+    # schedule's table the launcher keeps them in global memory, and the
+    # wrapper, through path_of, allocates the scratch for them
+    from cvx_tpu_torch.ops.kl_barrier import fused_n_outer, path_of
+
+    args = _primal_family(4, 5760, 1, dev, torch.float64)
+    kw = dict(mu=55.0, n_inner=3)
+    table = fused_n_outer(5761, mu=55.0) + 12
+    assert path_of(5760, 4, torch.float64) == ("group", 16, "shared")
+    assert path_of(5760, 4, torch.float64, table) == ("group", 16, "global")
+    x = kl_barrier_fused(*args, **kw)
+    xp = kl_barrier_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all())
+    assert float((x - xp).abs().max()) <= 1e-11
 
 
 @pytest.mark.timeout(600)
@@ -709,3 +770,39 @@ def test_certified_call_launches_k2_alone(dev, n, B):
     assert got["cert_leaves_fused"] == before["cert_leaves_fused"] + 3
     assert got["cert_leaves_torch"] == before["cert_leaves_torch"]
     assert not bool(sol.stalled.any())
+
+
+@pytest.mark.timeout(600)
+@pytest.mark.parametrize("B,n,dtype", [(10000, 100, torch.float32),
+                                       (100, 10000, torch.float64)])
+def test_k3_call_launches_k3_alone(dev, B, n, dtype):
+    """A K3 call on the card is one device op, the kernel, on the register
+    path and on the group path that allocates its scratch ("global"): the
+    kernel works out the schedule, so ``kl_barrier_schedule_torch`` does
+    not move and ``kl_barrier_fused`` counts each launch.  Last in the
+    file, as the certified test above."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvx_tpu_torch import diagnostics
+    from cvx_tpu_torch.ops.kl_barrier import path_of
+
+    args = _primal_family(B, n, 2, dev, dtype)
+    kw = dict(mu=55.0, n_inner=3)
+    kl_barrier_fused(*args, **kw)        # the library
+    torch.cuda.synchronize()
+    before = diagnostics.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            x = kl_barrier_fused(*args, **kw)
+        torch.cuda.synchronize()
+    got = diagnostics.counters()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e.name() for e in prof.profiler.kineto_results.events()
+           if e.device_type() == cuda and not e.is_user_annotation()]
+    assert len(ops) == 3 and all("kl_barrier" in o for o in ops), ops
+    assert got["kl_barrier_fused"] == before["kl_barrier_fused"] + 3
+    assert got["kl_barrier_schedule_torch"] == \
+        before["kl_barrier_schedule_torch"]
+    assert path_of(n, B, dtype) in ("register", ("group", 16, "global"))
+    assert bool(torch.isfinite(x).all())

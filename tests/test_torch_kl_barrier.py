@@ -282,6 +282,7 @@ def test_path_of_mirrors_the_kernel_source():
     assert kl_barrier._GROUP_BLOCK_WARPS == const["kGroupBlockWarps"]
     assert kl_barrier._GROUP_ROWS == const["kGroupRows"]
     assert kl_barrier._RED_MAX == const["kRedMax"]
+    assert kl_barrier._SMEM_MAX == const["kSmemMax"]
     flat = " ".join(src.replace("\\\n", " ").split())  # macros joined
     for rule in ("if (n <= kRegMaxN) {",
                  "while (G < kGroupMaxWarps && 32 * G * kGroupNC < n && "
@@ -291,7 +292,11 @@ def test_path_of_mirrors_the_kernel_source():
                  "const int c = (n + 32 * G - 1) / (32 * G);",
                  "if (c <= kGroupNC) {",
                  "const long long smem = (long long)per * kGroupRows * n * "
-                 "(long long)sizeof(T); if (smem <= kGroupSmemBytes) {",
+                 "(long long)sizeof(T); if (smem <= kGroupSmemBytes && "
+                 "smem + tab + 2 * kGroupMaxWarps * kRedMax * "
+                 "(long long)sizeof(T) <= kSmemMax) {",
+                 "const int tab = schedule_bytes<T>(n_outer, n_ls);",
+                 "return ((n_outer + n_ls) * (int)sizeof(T) + 15) / 16 * 16;",
                  "constexpr int kGroupSmemBytes = 232448 - 2 * "
                  "kGroupMaxWarps * kRedMax * 8;"):
         assert rule in flat, rule
@@ -321,6 +326,15 @@ def test_path_of_mirrors_the_kernel_source():
     assert path_of(2048, 10000, f32) == ("group", 4, "shared")
     assert path_of(2880, 10000, f32) == ("group", 8, "shared")
     assert path_of(30000, 4, f64) == ("group", 16, "global")
+    # the schedule's table (n_outer + n_ls entries) sits in front of the
+    # rows: in f64 the rows of n = 5,760 fill the block without it, in f32
+    # a table of up to 256 entries fits beside the reduction buffers
+    assert path_of(5760, 100, f64) == ("group", 16, "shared")
+    assert path_of(5760, 100, f64, 19) == ("group", 16, "global")
+    assert path_of(5756, 100, f64, 19) == ("group", 16, "shared")
+    assert path_of(5757, 100, f64, 19) == ("group", 16, "global")
+    assert path_of(11520, 1, f32, 256) == ("group", 16, "shared")
+    assert path_of(11520, 1, f32, 257) == ("group", 16, "global")
     # a block holds one instance of G warps or four one-warp instances:
     # at most 512 threads, the kernel's launch bound
     for n in (257, 1000, 4097, 10 ** 6):

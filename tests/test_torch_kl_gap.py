@@ -263,9 +263,10 @@ def test_kl_dual_gap_dispatch_and_its_chain_counter(monkeypatch):
 def test_counters_list_the_wrapper_and_the_chain():
     got = diagnostics.counters()
     assert "kl_gap_fused" in got and "kl_dual_gap_chain_calls" in got
-    # the certified route's counters sit beside them; kl_dual_gap moves
-    # neither (checked with the rest below)
+    # the certified route's counters and K3's schedule counter sit beside
+    # them; kl_dual_gap moves none of them (checked with the rest below)
     assert "cert_leaves_fused" in got and "cert_leaves_torch" in got
+    assert "kl_barrier_schedule_torch" in got
     H, U, A, b, X, _ = _family(8, 2, 20, 3, seed=4)      # dual dim 10
     before = diagnostics.counters()
     kl_dual_gap(H, U, A, b, X)

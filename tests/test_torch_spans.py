@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from cvx_tpu_torch import DistKL, SolverParams, _spans, diagnostics
 from cvx_tpu_torch.ops import _build
+from cvx_tpu_torch.ops.kl_barrier import kl_barrier_fused
 
 # one torch thread a test process (see test_torch_api_utilities.py)
 torch.set_num_threads(1)
@@ -129,18 +130,44 @@ def test_trace_shows_the_spans(tmp_path):
 def test_counters_and_a_cpu_solve_moves_none():
     """No launch or build counter moves on the CPU; the certified call's
     Solution, whose leaves K2's plain version made by the torch rule,
-    counts under ``cert_leaves_torch``."""
+    counts under ``cert_leaves_torch``, and the fused primal call's K3,
+    whose plain version built its schedule as tensors, under
+    ``kl_barrier_schedule_torch``."""
     before = diagnostics.counters()
     assert set(before) == {"kl_dual_fused", "kl_dual_fused_cert",
                            "kl_barrier_fused", "kl_gap_fused",
                            "cholesky_batched_cuda", "kl_dual_gap_chain_calls",
+                           "kl_barrier_schedule_torch",
                            "cert_leaves_fused", "cert_leaves_torch",
                            "nvcc_runs", "kernel_loads", "kernel_load_s"}
     model = _model()
     for call, _ in ROUTES.values():
         call(model)
     assert diagnostics.counters() == dict(
-        before, cert_leaves_torch=before["cert_leaves_torch"] + 1)
+        before, cert_leaves_torch=before["cert_leaves_torch"] + 1,
+        kl_barrier_schedule_torch=before["kl_barrier_schedule_torch"] + 1)
+
+
+LAUNCHES = ("kl_dual_fused", "kl_dual_fused_cert", "kl_barrier_fused",
+            "kl_gap_fused", "cholesky_batched_cuda")
+
+
+@pytest.mark.parametrize("call", [
+    lambda m: kl_barrier_fused(
+        m.H[None].expand(3, -1, -1), U, torch.ones((3, 1, N)),
+        torch.ones((3, 1)), _x0(U), mu=55.0, n_inner=3),
+    ROUTES["primal"][0]], ids=["kl_barrier_fused", "solve_jittable_batch"])
+def test_a_cpu_k3_call_counts_one_torch_schedule(call):
+    """K3 on CPU tensors runs the plain version, which builds its schedule
+    as tensors: one ``kl_barrier_schedule_torch`` a call, for the wrapper
+    and for the fused primal route, and no launch."""
+    model = _model()
+    before = diagnostics.counters()
+    call(model)
+    got = diagnostics.counters()
+    assert got["kl_barrier_schedule_torch"] == \
+        before["kl_barrier_schedule_torch"] + 1
+    assert {c: got[c] for c in LAUNCHES} == {c: before[c] for c in LAUNCHES}
 
 
 @pytest.mark.parametrize("route", [
